@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with an NVIDIA card, nvcc
 and a C compiler. Phases:
 
 1. card and build: print the card's name and power limit, build every
-   CUDA kernel of the classify pass from the sources in the checkout;
+   CUDA kernel from the sources in the checkout, one nvcc each, all
+   started together;
 2. data: from --seed, a reference collection of viral-genome-sized
    sequences in families of 3-8 strains (1-5 % substitutions and indels
    apart), its index (built on the host, not timed), and long reads with
@@ -16,17 +17,32 @@ and a C compiler. Phases:
    byte-equal to the gold oracle's (ClassifyEngine) on the same reads,
    with the slow ladders and the M3 path both taken; the kernels' launch
    counts are zeroed just before and read just after this run;
-4. kernels: each kernel's wrapper on the inputs the main path gave it,
-   bit-equal (tolerance 0) to its plain version on the same rows, and
-   both timed.
+4. K1: the rescore kernel's wrapper on the inputs the main path gave it
+   (the first main batch and the first M3 sub-batch), bit-equal
+   (tolerance 0) to its plain version on every row with chains, and both
+   timed;
+5. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
+   at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
+   launches the compare-count kernel (K3) on a sorted table with one lane
+   per block and on an unsorted one with 8 lanes per block; its counts are
+   zeroed just before and read just after; each result bit-equal to the
+   plain version and to ``torch.searchsorted`` over the sorted table, and
+   kernel, plain version and searchsorted timed by CUDA events.
 
-Any mismatch or exception exits non-zero. The line before the last is the
-kernels' JSON record; the last line is the device record.
+Each kernel's bound is the larger of the bytes its function must move
+(what this run's data needs of each input, read once; each output written
+once) over the card's memory rate and the least operations that function
+needs on these inputs over the card's int32 rate (the constants below);
+``rescore_bytes`` and ``cmpcount_ops`` say what is counted. A kernel or
+library call faster than its bound fails the run, since the bound would
+not be one. Any mismatch or exception exits non-zero. The line before the
+last is the kernels' JSON record; the last line is the device record.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -36,10 +52,11 @@ import time
 import numpy as np
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
-# rescore_pl.prepare fields with one row per read
-PER_READ = ("scal", "chains", "anchors", "schash", "codes_pk", "rk_vals",
-            "rk_pos")
-CHECK_ROWS = 64    # main-batch rows with chains held against the plain version
+# H100 SXM data sheet: 3.35 TB/s of HBM. int32: 64 lanes per SM (Hopper
+# white paper) x 132 SMs x 1.98 GHz boost clock, the lanes x clock that
+# give the data sheet's 67 TFLOP/s of float32 from 128 lanes x 2 (FMA).
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 64 * 132 * 1.98e9
 
 
 def log(*a):
@@ -132,6 +149,96 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def bound(nbytes, ops):
+    """(least milliseconds for the work, "bytes" or "operations")."""
+    tb, to = nbytes / HBM_BYTES_S, ops / INT32_OPS_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class Touched:
+    """A reference-word array that records the [start, stop) word spans
+    the plain rescore reads from it (its only access is a window slice)."""
+
+    def __init__(self, words):
+        self.words, self.spans = words, []
+
+    def __len__(self):
+        return len(self.words)
+
+    def __getitem__(self, s):
+        self.spans.append((s.start, s.stop))
+        return self.words[s]
+
+
+def span_words(spans):
+    """Words in the union of [start, stop) spans."""
+    n, end = 0, -1
+    for a, b in sorted(spans):
+        if b > end:
+            n += b - max(a, end)
+            end = b
+    return n
+
+
+def rescore_bytes(host, rows, spans):
+    """Bytes K1's function must move on a prepared batch (numpy arrays):
+    each row's scal record and its output record (chains and flags); for
+    each row with chains, its chain records with their reference offset
+    and length, its combine-hash entries, the anchors its chains' walks
+    reach, the packed read in both directions and the valid part of its
+    two value-sorted 9-mer tables (values and positions); and, once for
+    the batch, the reference words in the union of the windows read
+    (``spans``). Padding and unread reference are not counted."""
+    from desamba_tpu_torch.engine.device.rescore import (C_CAP, C_CUR,
+                                                         C_SUM, CF_N, K9)
+
+    scal, chains, anchors = host["scal"], host["chains"], host["anchors"]
+    A2 = anchors.shape[1]
+    n = len(scal) * (16 + 4 * (C_CAP * CF_N + 3)) + 4 * span_words(spans)
+    for b in rows:
+        nc, nh, rl = (int(x) for x in scal[b, :3])
+        seen = set()
+        for c in chains[b, :nc]:
+            a = int(c[C_CUR]) if c[C_SUM] != 0 else -1
+            while 0 <= a < A2 and a not in seen:
+                seen.add(a)
+                a = int(anchors[b, a, 3])
+        n += (nc * (4 * CF_N + 8) + 12 * nh + 16 * len(seen)
+              + 4 * -(-2 * rl // 16) + 16 * max(rl - K9 + 1, 0))
+    return n
+
+
+def cmpcount_ops(B, P, K, t_sorted):
+    """The least comparisons K3's function needs on these shapes: on a
+    sorted table, one binary search per query (ceil(log2(K + 1)) steps;
+    the counts at q + 1 .. q + R - 1 follow from the few entries in
+    [q, q + R), which are left out); on an unsorted one, per lane the fewer
+    of one comparison per entry per query and a comparison sort
+    (ceil(log2 K!)) followed by those searches."""
+    search = math.ceil(math.log2(K + 1))
+    if t_sorted:
+        return B * P * search
+    sort = math.ceil(math.lgamma(K + 1) / math.log(2))
+    return B * min(P * K, sort + P * search)
+
+
+def searchsorted_count(q, t, repeats, t_sorted):
+    """The compare-count by one torch.searchsorted over the row-sorted table
+    (the library yardstick; the port never calls it)."""
+    import torch
+
+    ts = t if t_sorted else torch.sort(t, dim=1).values
+    B, P = q.shape
+    v = (q[:, :, None] + torch.arange(repeats, dtype=q.dtype,
+                                      device=q.device)).reshape(B, P * repeats)
+    return torch.searchsorted(ts, v).view(B, P, repeats).sum(
+        dim=2, dtype=torch.int32)
+
+
 class Rec:
     __slots__ = ("name", "seq", "qual")
 
@@ -152,12 +259,15 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from desamba_tpu.engine.gold.classify import ClassifyEngine, Options
-    from desamba_tpu.index.build import build_index
-    from desamba_tpu.io.sam import format_result
     from desamba_tpu_torch.engine.device import rescore_pl as trp
     from desamba_tpu_torch.engine.device.classifier import DeviceClassifier
+    from desamba_tpu_torch.engine.gold.classify import ClassifyEngine, Options
+    from desamba_tpu_torch.index.build import build_index
+    from desamba_tpu_torch.io.sam import format_result
     from desamba_tpu_torch.kernels import build
+    from desamba_tpu_torch.tools import gather_bench as gb
+    from desamba_tpu_torch.tools.cmpcount import (compare_count,
+                                                  compare_count_plain)
 
     # ---- 1. card and build ------------------------------------------------
     card = card_line()
@@ -197,7 +307,7 @@ def main():
         return orig(inp)
 
     dev._k_rescore = capture
-    kernels = {"rescore": trp.rescore_cuda}
+    kernels = {"rescore": trp.rescore_cuda, "cmpcount": compare_count}
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -230,9 +340,8 @@ def main():
         log(f"SAM byte-equal to gold: {len(got.splitlines())} lines")
     if fb["slow_path_reads"] <= 0 or fb["m3_path_reads"] <= 0:
         failures.append("the slow path or the M3 path was not taken")
-    for n, c in launches.items():
-        if c <= 0:
-            failures.append(f"kernel {n} was not launched by the main path")
+    if launches["rescore"] <= 0:
+        failures.append("kernel rescore was not launched by the main path")
 
     # ---- 4. kernels against their plain versions ------------------------------
     dix = dev.dix
@@ -240,18 +349,21 @@ def main():
     for width, inp in sorted(captured.items()):
         prep = trp.prepare(inp, dev.ref_words, dix.ref_off, dix.ref_len_arr,
                            dix.n_bases)
-        live = np.flatnonzero(inp.n_chains.cpu().numpy() > 0)
-        rows = live if width != 64 else live[:CHECK_ROWS]
+        rows = np.flatnonzero(inp.n_chains.cpu().numpy() > 0)
         ch_k, fl_k = trp.rescore_cuda(prep)
         torch.cuda.synchronize()
+        host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                for k, v in prep.items()}
+        touched = Touched(host["ref_words"])
         t0 = time.perf_counter()
-        ch_p, fl_p = trp.rescore_plain(prep, rows)
+        ch_p, fl_p = trp.rescore_plain(dict(host, ref_words=touched), rows)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        sel = torch.as_tensor(rows, device=prep["scal"].device)
-        sub = {k: (v[sel].contiguous() if k in PER_READ else v)
-               for k, v in prep.items()}
-        ms = cuda_ms(lambda: trp.rescore_cuda(sub), 5)
-        full_ms = cuda_ms(lambda: trp.rescore_cuda(prep), 5)
+        ms = cuda_ms(lambda: trp.rescore_cuda(prep), 5)
+        # operations: one per step of the walk and the DP (flags column 2),
+        # a lower bound
+        steps = int(fl_k[:, 2].to(torch.int64).sum())
+        nbytes = rescore_bytes(host, rows, touched.spans)
+        bnd = bound(nbytes, steps)
         ck = ch_k.cpu().numpy()[rows].astype(np.int64)
         fk = fl_k.cpu().numpy()[rows].astype(np.int64)
         cp = ch_p.numpy()[rows].astype(np.int64)
@@ -259,32 +371,87 @@ def main():
         err = int(max(np.abs(ck - cp).max(initial=0),
                       np.abs(fk - fp).max(initial=0)))
         n_fb = int(fk[:, 0].sum())
-        log(f"rescore width {width}: {len(rows)} rows, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, full batch of "
-            f"{prep['scal'].shape[0]} rows {full_ms:.3f} ms, "
-            f"max_abs_err {err}, {n_fb} rows fell back")
-        if len(rows) == 0 or (width == 64 and len(rows) < min(
-                CHECK_ROWS, len(live))):
-            failures.append(f"too few rescore rows checked at width {width}")
+        log(f"rescore width {width}: batch of {prep['scal'].shape[0]} rows, "
+            f"{len(rows)} with chains: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms on those rows, bound {bnd[0]:.6f} ms "
+            f"({bnd[1]}; {nbytes} bytes, {span_words(touched.spans)} "
+            f"reference words; {steps} steps); max_abs_err {err}, "
+            f"{n_fb} rows fell back")
+        if len(rows) == 0:
+            failures.append(f"no rescore rows checked at width {width}")
         if err != 0:
             failures.append(f"rescore kernel differs from its plain version "
                             f"at width {width}: max_abs_err {err}")
-        recs.append(dict(width=width, rows=len(rows), ms=ms,
-                         plain_ms=plain_ms, err=err))
+        if ms < bnd[0]:
+            failures.append(f"rescore at width {width} beat its bound: "
+                            f"{ms} < {bnd[0]} ms")
+        recs.append(dict(width=width, ms=ms, plain_ms=plain_ms, err=err,
+                         bound=bnd))
     if 512 not in captured:
         failures.append("no M3 rescore sub-batch ran")
     main = next((r for r in recs if r["width"] == 64), None)
+    records = []
     if main is None:
         failures.append("no main-batch rescore ran")
     else:
-        log(json.dumps({"kernels": [{
+        records.append({
             "name": "rescore", "route": "cuda",
             "source": "desamba_tpu_torch/kernels/rescore.cu",
             "replaces": "desamba_tpu/engine/device/rescore_pl.py:1101",
             "launches": launches["rescore"],
             "max_abs_err": max(r["err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "check": "ok" if not failures else "failed"}]}))
+            "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
+            "library_ms": None})
+
+    # ---- 5. gather bench: the compare-count kernel (K3) ---------------------
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    bench = gb.main([str(gb.B_TOOLS), "all"])
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    log("gather bench launches: " + json.dumps(launches))
+    variants = (("pallas", "cmpcount", "tools/gather_bench.py:112", True),
+                ("blocked", "cmpcount_8lane", "tools/gather_bench2.py:87",
+                 False))
+    if sum(bench[v]["launches"] for v, *_ in variants) != launches["cmpcount"]:
+        failures.append("cmpcount launches do not add up over its variants")
+    for v, name, replaces, t_sorted in variants:
+        r = bench[v]
+        q, t = r["inputs"]
+        lanes = r["lanes_per_block"]
+        plain = compare_count_plain(q, t, gb.R)
+        lib = searchsorted_count(q, t, gb.R, t_sorted)
+        err = int(max((r["out"] - plain).abs().max(),
+                      (r["out"] - lib).abs().max()))
+        ms = cuda_ms(lambda: compare_count(q, t, gb.R, lanes), 20)
+        plain_ms = cuda_ms(lambda: compare_count_plain(q, t, gb.R), 3)
+        lib_ms = cuda_ms(lambda: searchsorted_count(q, t, gb.R, t_sorted), 20)
+        (B, P), K = q.shape, t.shape[1]
+        bms, by = bound(tensor_bytes(q, t, r["out"]),
+                        cmpcount_ops(B, P, K, t_sorted))
+        log(f"{name}: B={B} K={K} P={P} R={gb.R} lanes/block {lanes}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"max_abs_err {err}")
+        if r["launches"] <= 0:
+            failures.append(f"{name} was not launched by the gather bench")
+        if (B, K, P) != (gb.B_TOOLS, gb.K, gb.P):
+            failures.append(f"{name} ran at {(B, K, P)}, not the tools' shape")
+        if err != 0:
+            failures.append(f"{name} differs from its plain version or "
+                            f"searchsorted: max_abs_err {err}")
+        if min(ms, lib_ms) < bms:
+            failures.append(f"{name}: kernel {ms} ms or searchsorted "
+                            f"{lib_ms} ms beat the bound {bms} ms")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "desamba_tpu_torch/kernels/cmpcount.cu",
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    log(json.dumps({"kernels": records}))
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)

@@ -4,9 +4,13 @@ A port of ``desamba_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 The JAX package stays the reference; every module of
 ``desamba_tpu/engine/device`` that the classify pass runs has a
 counterpart at the same path here, held bit-for-bit against it by the
-``tests/test_torch_*.py`` parity tests. The framework-free parts of
-``desamba_tpu`` (constants, index, io, the gold oracle, analysis) are
-imported, not copied. This package never imports ``jax``.
+``tests/test_torch_*.py`` parity tests. The framework-free host code it
+needs from ``desamba_tpu`` is copied here at the same relative paths
+(``constants``, ``io``, ``index``, ``engine/gold``), and the copies are
+held equal to the originals by ``tests/test_torch_copies.py``. This
+package imports neither ``jax`` nor anything of ``desamba_tpu``
+(``tests/test_torch_import.py``); ``io/native.py`` builds the repo's C
+runtime (``csrc/``) into ``io/_build/``.
 
 Integer conventions (the pipeline is integer throughout, so "equal"
 means bit-equal):
@@ -29,8 +33,11 @@ means bit-equal):
   them (``compaction.compact_rows``, ``fm._interval_sa``), at every point
   the JAX code relies on either rule.
 
-Every stage takes an explicit ``device``; there is no global default
-device and no ``torch.compile``. The one hand-written kernel, the per-read
-9-mer SDP rescore, lives in ``kernels/rescore.cu`` and is built with
-``nvcc`` at first use (``kernels/build.py``).
+Every stage takes an explicit ``device``; the entry points
+(``DeviceClassifier``, ``cli``, ``tools.gather_bench``) default to
+``cuda``, and there is no ``torch.compile``. The hand-written kernels live
+in ``kernels/*.cu`` and are built with ``nvcc`` at first use
+(``kernels/build.py``): the per-read 9-mer SDP rescore
+(``rescore.cu``) and the compare-count lookup (``cmpcount.cu``, wrapped
+by ``tools/cmpcount.py``).
 """

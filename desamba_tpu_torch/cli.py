@@ -1,11 +1,12 @@
 """Command line of the port: ``classify`` on the device pipeline.
 
     python -m desamba_tpu_torch.cli classify <index_dir> <reads.fq> \\
-        -o out.sam --device cuda
+        -o out.sam [--device cuda]
 
 It takes the options of ``desamba-tpu classify`` (desamba_tpu/cli.py)
-plus ``--device``, which has no default: the device path runs where the
-caller says, on the card (``cuda``) or, for tests, on the CPU.
+plus ``--device``: the device path runs on the card (``cuda``, the
+default) unless the caller asks for the CPU (``--device cpu``, as the
+tests do).
 """
 from __future__ import annotations
 
@@ -15,12 +16,11 @@ import time
 
 
 def cmd_classify(args):
-    from desamba_tpu.engine.gold.classify import ClassifyEngine, Options
-    from desamba_tpu.index.store import load_index
-    from desamba_tpu.io.fastx import read_fastx_fast as read_fastx
-    from desamba_tpu.io.sam import format_result
-
     from .engine.device.classifier import DeviceClassifier
+    from .engine.gold.classify import ClassifyEngine, Options
+    from .index.store import load_index
+    from .io.fastx import read_fastx_fast as read_fastx
+    from .io.sam import format_result
 
     idx = load_index(args.index_dir)
     print("loading index\tStart classify", file=sys.stderr)
@@ -70,8 +70,9 @@ def main(argv=None):
                     choices=["auto", "gold", "device"],
                     help="device (and auto) = this package's device "
                          "pipeline; gold = the host oracle")
-    pc.add_argument("--device", required=True,
-                    help="torch device of the device pipeline, e.g. cuda")
+    pc.add_argument("--device", default="cuda",
+                    help="torch device of the device pipeline (default "
+                         "cuda; cpu for tests)")
     pc.set_defaults(fn=cmd_classify)
     args = p.parse_args(argv)
     args.fn(args)

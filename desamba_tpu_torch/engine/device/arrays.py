@@ -62,7 +62,7 @@ def build_arrays(idx) -> dict:
     cidx = np.minimum(chars, 4).astype(np.int64)
     lf = counts[cidx, np.arange(n)] + idx.rank[cidx]
     lf[chars == 5] = idx.dollar_pos + idx.rank[5]
-    from desamba_tpu.engine.gold.mapq import mapq_tables
+    from ..gold.mapq import mapq_tables
 
     q_mem, q_lv = mapq_tables(len(idx.ref_bin) * 4)
     if n >= (1 << 28):

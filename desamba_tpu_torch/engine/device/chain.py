@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from desamba_tpu.constants import (
+from ...constants import (
     M3_ANCHOR_THRESHOLD,
     MAX_ANCHOR_OVERLAP,
     MAX_DIS_MINUS,

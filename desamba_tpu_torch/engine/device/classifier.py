@@ -12,6 +12,10 @@ the JAX classifier's, copied, and the device stages are this package's:
            and SAM, in input order so StreamState and output order match
            the reference exactly.
 
+The gold oracle, the native library and the constants are this package's
+own copies of the JAX package's modules (``engine/gold``, ``io``,
+``constants``).
+
 A read goes to the gold oracle only where the JAX classifier sends it:
 ladder pack overflow, chain-slot overflow, too many anchors or chains, or
 a rescore fallback. ``fallback_stats()`` counts them by cause, and
@@ -27,25 +31,20 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from desamba_tpu.constants import (FORWARD, M3_ANCHOR_THRESHOLD,
-                                   MIN_READ_LEN, REVERSE, SEED_RANGE,
-                                   STEP_EK)
-from desamba_tpu.engine.gold.chain import Chain
-from desamba_tpu.engine.gold.classify import (ClassifyEngine, Options,
-                                              ReadResult, StreamState)
-from desamba_tpu.engine.gold.islands import mark_top
-from desamba_tpu.engine.gold.rescore import (detect_primary,
-                                             post_finish_native,
-                                             post_rescore_finish)
-from desamba_tpu.index.kmers import CLY_BIT
-from desamba_tpu.io import native
+from ...constants import (FORWARD, M3_ANCHOR_THRESHOLD, MIN_READ_LEN,
+                          REVERSE, SEED_RANGE, STEP_EK)
+from ...io import native
+from ..gold.chain import Chain
+from ..gold.classify import ClassifyEngine, Options, ReadResult, StreamState
+from ..gold.rescore import (detect_primary, post_finish_native,
+                            post_rescore_finish)
 
 from . import chain as dc
 from . import rescore as dr
 from . import rescore_pl as drp
 from .arrays import DeviceIndex
 from .intops import I32
-from .islands import bloom_hit_kernel, segment_islands
+from .islands import bloom_hit_kernel
 from .ladder import IV_HOT, fast_ladder, slow_ladder
 from .pipeline import pre13_values
 
@@ -95,7 +94,7 @@ class LaneSet:
 
 
 class DeviceClassifier:
-    def __init__(self, idx, opts: Options | None, device,
+    def __init__(self, idx, opts: Options | None = None, device="cuda",
                  batch_size: int = 2048):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -143,19 +142,14 @@ class DeviceClassifier:
         idx = self.idx
         l_ek = idx.len_e_kmer
         B = len(seqs)
-        if B and native.available():
-            lens_np = np.array([len(s) for s in seqs], np.int64)
-            mat = native.encode_batch("".join(seqs).encode(), lens_np,
-                                      int(lens_np.max()))
-            bufs = [mat[i, : 2 * lens_np[i]] for i in range(B)]
-        else:
-            bufs = []
-            for seq in seqs:
-                bin_f = CLY_BIT[np.frombuffer(seq.encode(), np.uint8)]
-                bufs.append(np.concatenate([bin_f, (3 - bin_f)[::-1]]))
         if not B:
             z = np.zeros(0, np.int64)
-            return bufs, np.zeros((0, 3), np.int32), z, z, z
+            return [], np.zeros((0, 3), np.int32), z, z, z
+        native.available()          # builds and loads the library, or raises
+        lens_np = np.array([len(s) for s in seqs], np.int64)
+        mat = native.encode_batch("".join(seqs).encode(), lens_np,
+                                  int(lens_np.max()))
+        bufs = [mat[i, : 2 * lens_np[i]] for i in range(B)]
         Lmax_all = max(len(b) // 2 for b in bufs)
         hits = np.zeros((2 * B, Lmax_all - l_ek + 1), bool)
         order = sorted(range(B), key=lambda i: len(bufs[i]))
@@ -188,24 +182,9 @@ class DeviceClassifier:
         n_k_a[0::2] = n_k_a[1::2] = [len(s) - l_ek + 1 for s in seqs]
         dirs_a[0::2] = FORWARD
         dirs_a[1::2] = REVERSE
-        if native.available():
-            seeds, s_off, s_cnt, totals = native.islands_batch(
-                hits.view(np.uint8), n_k_a, dirs_a, STEP_EK, SEED_RANGE)
-            return bufs, seeds, s_off, s_cnt, totals
-        rows, offs, cnts, tots = [], [], [], []
-        at = 0
-        for s in range(2 * B):
-            nk = int(n_k_a[s])
-            sl = segment_islands(hits[s, :nk], nk, int(dirs_a[s]))
-            tots.append(mark_top(sl, nk, int(dirs_a[s])))
-            offs.append(at)
-            cnts.append(len(sl))
-            at += len(sl)
-            rows.extend(sl)
-        seeds = (np.array(rows, np.int32).reshape(-1, 3)
-                 if rows else np.zeros((0, 3), np.int32))
-        return (bufs, seeds, np.array(offs, np.int64),
-                np.array(cnts, np.int64), np.array(tots, np.int64))
+        seeds, s_off, s_cnt, totals = native.islands_batch(
+            hits.view(np.uint8), n_k_a, dirs_a, STEP_EK, SEED_RANGE)
+        return bufs, seeds, s_off, s_cnt, totals
 
     # ---- ladder helpers ----------------------------------------------------
     # island-length partition thresholds (the JAX classifier's groups: the
@@ -393,7 +372,7 @@ class DeviceClassifier:
             yield from self._classify_batch(recs[i : i + self.batch_size])
 
     def classify_file(self, path):
-        from desamba_tpu.io.fastx import read_fastx_fast as read_fastx
+        from ...io.fastx import read_fastx_fast as read_fastx
 
         batch = []
         for rec in read_fastx(path):

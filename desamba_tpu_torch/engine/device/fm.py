@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from desamba_tpu.constants import L_PRE_IDX
+from ...constants import L_PRE_IDX
 
 from . import textwalk
 from .arrays import BLOCK

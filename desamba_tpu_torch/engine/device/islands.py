@@ -4,16 +4,12 @@ Counterpart of ``desamba_tpu/engine/device/islands.py``. The rolling
 e-kmer and the two 64-bit hashes use native int64 in place of the JAX
 package's (hi, lo) uint32 pairs (``u64ops.py``): int64 adds, multiplies
 and left shifts wrap exactly like uint64, and every right shift is
-masked to make it logical. Island segmentation stays the shared native
-C call (``desamba_tpu.io.native.islands_batch``); ``segment_islands`` is
-its pure-Python fallback.
+masked to make it logical. Island segmentation is the native C call
+``io.native.islands_batch``.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
-
-from desamba_tpu.constants import FORWARD, STEP_EK
 
 from .intops import I32, I64, i32, take
 
@@ -91,37 +87,3 @@ def bloom_hit_kernel(codes, lengths, ek0, ek1, l_ek: int,
             & 1).bool()
     return hit1 & hit2 & valid
 
-
-def segment_islands(hit_row: np.ndarray, n_kmers: int, direction: int) -> list:
-    """Arithmetic per-run island walk, equivalent to the reference scan
-    (the host fallback when the native library is unavailable)."""
-    hv = hit_row[:n_kmers]
-    d = np.diff(np.concatenate([[0], hv.view(np.int8), [0]]))
-    starts = np.flatnonzero(d == 1)
-    ends = np.flatnonzero(d == -1)
-    seeds = []
-    if direction == FORWARD:
-        p = STEP_EK - 1
-        for a, b in zip(starts, ends):
-            while True:
-                if p < a:
-                    p = a + (-(a - p)) % STEP_EK
-                if p >= b:
-                    break
-                o = max(a, p - 2)
-                ln = min(61, b - o)
-                seeds.append([int(o), int(ln), 0])
-                p = o + ln + STEP_EK
-        return seeds
-    p = n_kmers - STEP_EK
-    for a, b in zip(starts[::-1], ends[::-1]):
-        while True:
-            if p > b - 1:
-                p = (b - 1) - (-(p - (b - 1))) % STEP_EK
-            if p < a:
-                break
-            top = min(b - 1, p + 2)
-            ln = min(61, top - a + 1)
-            seeds.append([int(top - ln + 1), int(ln), 0])
-            p = top - ln - STEP_EK
-    return seeds

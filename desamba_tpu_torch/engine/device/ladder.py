@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from desamba_tpu.constants import (
+from ...constants import (
     MEM_SEARCH_FAST,
     MEM_SEARCH_SLOW,
     MIN_MEM_LEN_FAST,

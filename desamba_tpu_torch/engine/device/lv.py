@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from desamba_tpu.constants import LV_ERROR
+from ...constants import LV_ERROR
 
 from .intops import I32, I64, M32, popc
 

@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from desamba_tpu.constants import LV_L, MIN_S_1, MIN_S_2, MIN_UNI_L, SA_MASK
+from ...constants import LV_L, MIN_S_1, MIN_S_2, MIN_UNI_L, SA_MASK
 
 from .intops import I32, I64, M32, popc, take, take2, u32
 from .lv import lv_batch

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from desamba_tpu.constants import L_PRE_IDX, PRE_IDX_MASK
+from ...constants import L_PRE_IDX, PRE_IDX_MASK
 
 from .intops import I32, I64
 

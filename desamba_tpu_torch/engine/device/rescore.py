@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from desamba_tpu.constants import S_A_KMER_L
+from ...constants import S_A_KMER_L
 
 from .textwalk import pack2
 

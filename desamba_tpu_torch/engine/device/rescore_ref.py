@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from desamba_tpu.constants import MIN_SCORE_MEM, OVER_SEARCH_M2, S_A_KMER_L
+from ...constants import MIN_SCORE_MEM, OVER_SEARCH_M2, S_A_KMER_L
 
 from .rescore import (C_ANUM, C_CAP, C_CUR, C_DIR, C_INDEL, C_QED, C_QST,
                       C_REF, C_SUM, C_TED, C_TST, CF_N, S_CAP, W_CAP)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from desamba_tpu.constants import SP_SET_CAP
+from ...constants import SP_SET_CAP
 
 from .intops import I32, I64, M32, popc, u32
 

@@ -16,7 +16,7 @@ import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("rescore.cu",)
+SOURCES = ("rescore.cu", "cmpcount.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -82,5 +82,15 @@ def rescore_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rescore_launch.argtypes = [p] * 12 + [i] * 8 + [p]
         lib.rescore_launch.restype = ctypes.c_int
+        lib._bound = True
+    return lib
+
+
+def cmpcount_lib():
+    lib = load("cmpcount.cu")
+    if not getattr(lib, "_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cmpcount_launch.argtypes = [p] * 3 + [i] * 5 + [p]
+        lib.cmpcount_launch.restype = ctypes.c_int
         lib._bound = True
     return lib

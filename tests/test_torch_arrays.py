@@ -5,6 +5,8 @@ import torch
 
 jax = pytest.importorskip("jax")
 
+from test_torch_stages import port_index  # noqa: E402
+
 
 @pytest.fixture(scope="module")
 def jax_fields(small_my_index):
@@ -26,7 +28,7 @@ def test_device_index_fields_equal_jax(small_my_index, jax_fields, how):
                                                         DeviceIndex)
 
     if how == "build":
-        tix = DeviceIndex.build(small_my_index, "cpu")
+        tix = DeviceIndex.build(port_index(small_my_index), "cpu")
     else:
         tix = DeviceIndex.from_arrays(jax_fields, "cpu")
     for f in TENSOR_FIELDS:

@@ -15,16 +15,25 @@ from test_repeat_paths import (  # noqa: E402,F401
     repeat_reads,
 )
 from test_torch_ladder import _noisy_recs  # noqa: E402
+from test_torch_stages import port_index  # noqa: E402
 
 
-def _run(cls, idx, recs, **kw):
-    """(SAM text, names handed to gold before the rescore, classifier).
+def _run(pkg, idx, recs, **kw):
+    """(SAM text, names handed to gold before the rescore, classifier) of
+    the DeviceClassifier of ``pkg`` (``desamba_tpu`` or
+    ``desamba_tpu_torch``), with that package's Options and SAM formatter;
+    the port gets the index through ``index_from_arrays``.
 
     The pre-rescore gold set is read from the ``fallback`` array that the
     device phase's finish closure holds, in both packages."""
-    from desamba_tpu.engine.gold.classify import Options
-    from desamba_tpu.io.sam import format_result
+    import importlib
 
+    cls = importlib.import_module(
+        f"{pkg}.engine.device.classifier").DeviceClassifier
+    Options = importlib.import_module(f"{pkg}.engine.gold.classify").Options
+    format_result = importlib.import_module(f"{pkg}.io.sam").format_result
+    if pkg == "desamba_tpu_torch":
+        idx = port_index(idx)
     eng = cls(idx, Options(), **kw)
     pre = []
     orig = eng._device_phase
@@ -57,17 +66,15 @@ def _gold_sam(idx, recs):
 
 @pytest.fixture(scope="module", params=["small_noisy", "repeat_corpus"])
 def corpus(request, small_my_index, repeat_my_index, repeat_reads):
-    from desamba_tpu.engine.device.classifier import DeviceClassifier as JDC
     from desamba_tpu.io.fastx import read_fastx
-    from desamba_tpu_torch.engine.device.classifier import DeviceClassifier
 
     if request.param == "small_noisy":
         idx, recs = small_my_index, _noisy_recs(small_my_index, 24, 41)
     else:
         idx = repeat_my_index
         recs = list(read_fastx(str(repeat_reads[0])))
-    jax_sam, jax_pre, _ = _run(JDC, idx, recs)
-    sam, pre, eng = _run(DeviceClassifier, idx, recs, device="cpu")
+    jax_sam, jax_pre, _ = _run("desamba_tpu", idx, recs)
+    sam, pre, eng = _run("desamba_tpu_torch", idx, recs, device="cpu")
     return dict(name=request.param, idx=idx, recs=recs, jax_sam=jax_sam,
                 jax_pre=jax_pre, sam=sam, pre=pre, eng=eng,
                 gold_sam=_gold_sam(idx, recs))

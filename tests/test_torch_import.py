@@ -1,5 +1,8 @@
-"""desamba_tpu_torch never loads jax, restates the JAX package's constants
-exactly, and keeps the integer conventions its package docstring states."""
+"""desamba_tpu_torch never loads jax or the JAX package, restates the JAX
+package's constants exactly, and keeps the integer conventions its package
+docstring states."""
+import ast
+import os
 import subprocess
 import sys
 
@@ -7,37 +10,46 @@ import numpy as np
 import pytest
 import torch
 
-PORT_MODULES = (
-    "desamba_tpu_torch",
-    "desamba_tpu_torch.cli",
-    "desamba_tpu_torch.kernels.build",
-    "desamba_tpu_torch.engine.device.arrays",
-    "desamba_tpu_torch.engine.device.islands",
-    "desamba_tpu_torch.engine.device.pipeline",
-    "desamba_tpu_torch.engine.device.compaction",
-    "desamba_tpu_torch.engine.device.textwalk",
-    "desamba_tpu_torch.engine.device.fm",
-    "desamba_tpu_torch.engine.device.lv",
-    "desamba_tpu_torch.engine.device.mapseed",
-    "desamba_tpu_torch.engine.device.ladder",
-    "desamba_tpu_torch.engine.device.chain",
-    "desamba_tpu_torch.engine.device.rescore",
-    "desamba_tpu_torch.engine.device.rescore_pl",
-    "desamba_tpu_torch.engine.device.rescore_ref",
-    "desamba_tpu_torch.engine.device.classifier",
-)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}:\n"
+    """Every module of desamba_tpu_torch (found by walking the package, the
+    copied host code and the tools included) imports neither jax nor
+    anything of the JAX package desamba_tpu."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import desamba_tpu_torch as P\n"
+            "mods = [m.name for m in pkgutil.walk_packages(\n"
+            "    P.__path__, 'desamba_tpu_torch.')]\n"
+            "for m in mods:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-            "             or m.startswith('jax.') or m.startswith('jaxlib'))\n"
-            "print(','.join(bad))\n")
+            "             or m.startswith('jax.') or m.startswith('jaxlib')\n"
+            "             or m == 'desamba_tpu'\n"
+            "             or m.startswith('desamba_tpu.'))\n"
+            "print(len(mods), ','.join(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, check=True)
-    assert out.stdout.strip() == "", out.stdout
+                         text=True, check=True, cwd=REPO)
+    n, _, bad = out.stdout.strip().partition(" ")
+    assert bad == "", bad
+    assert int(n) >= 40      # device, gold, index, io, kernels and tools
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py, parsed: no import of jax or desamba_tpu, at any
+    depth of the file."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "desamba_tpu_torch.engine.device.classifier" in names
+    for n in names:
+        root = n.split(".")[0]
+        assert root not in ("jax", "jaxlib", "desamba_tpu"), n
 
 
 # (port module, JAX module, names restated in the port)

@@ -17,7 +17,12 @@ from test_repeat_paths import (  # noqa: E402,F401
     repeat_my_index,
     repeat_reads,
 )
-from test_torch_stages import T, _random_reads, assert_same  # noqa: E402
+from test_torch_stages import (  # noqa: E402
+    T,
+    _random_reads,
+    assert_same,
+    port_index,
+)
 
 
 class _Rec:
@@ -38,10 +43,10 @@ def _noisy_recs(idx, n, seed):
 def _capture(idx, recs):
     """Every ladder call of the port's classifier on ``recs``: its inputs
     (as numpy) and its outputs."""
-    from desamba_tpu.engine.gold.classify import Options
     from desamba_tpu_torch.engine.device.classifier import DeviceClassifier
+    from desamba_tpu_torch.engine.gold.classify import Options
 
-    eng = DeviceClassifier(idx, Options(), "cpu")
+    eng = DeviceClassifier(port_index(idx), Options(), "cpu")
     calls = []
     orig = eng._k_ladder
 

@@ -21,16 +21,16 @@ from test_repeat_paths import (  # noqa: E402,F401
     repeat_reads,
 )
 from test_rescore_pl import _Rec, _reads_from  # noqa: E402
-from test_torch_stages import T, assert_same  # noqa: E402
+from test_torch_stages import T, assert_same, port_index  # noqa: E402
 
 
 def _capture(idx, recs):
     """Every RescoreIn (as numpy) the port's classifier hands its rescore:
     the main batch and the M3 sub-batch."""
-    from desamba_tpu.engine.gold.classify import Options
     from desamba_tpu_torch.engine.device.classifier import DeviceClassifier
+    from desamba_tpu_torch.engine.gold.classify import Options
 
-    eng = DeviceClassifier(idx, Options(), "cpu")
+    eng = DeviceClassifier(port_index(idx), Options(), "cpu")
     got = []
     orig = eng._k_rescore
 

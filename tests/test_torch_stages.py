@@ -4,6 +4,8 @@ Mirrors tests/test_device_engine.py (bloom, lv, map_seed, mem_probe) and
 tests/test_device_chain.py (chain_kernel, m3_kernel): the same seeded
 numpy inputs go through the JAX function and the port's, and every output
 array must be equal."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,15 @@ def T(x):
     return torch.from_numpy(a.copy())
 
 
+def port_index(idx):
+    """The port's IndexData holding the same arrays as the JAX package's
+    ``idx`` (no copy), through ``index_from_arrays``."""
+    from desamba_tpu_torch.index.store import index_from_arrays
+
+    return index_from_arrays({f.name: getattr(idx, f.name)
+                              for f in dataclasses.fields(idx)})
+
+
 def assert_same(j, t, what=""):
     a = np.asarray(j)
     if a.dtype == np.uint32:
@@ -44,7 +55,7 @@ def setup(small_my_index):
     from desamba_tpu_torch.engine.device.arrays import DeviceIndex as TDix
 
     jd = JDix.build(small_my_index)
-    return small_my_index, jd, TDix.build(small_my_index, "cpu")
+    return small_my_index, jd, TDix.build(port_index(small_my_index), "cpu")
 
 
 def _random_reads(idx, n, rng, lo=200, hi=1200):
