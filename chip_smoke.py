@@ -27,13 +27,34 @@ and a C compiler. Phases:
    per block and on an unsorted one with 8 lanes per block; its counts are
    zeroed just before and read just after; each result bit-equal to the
    plain version and to ``torch.searchsorted`` over the sorted table, and
-   kernel, plain version and searchsorted timed by CUDA events.
+   kernel, plain version and searchsorted timed by CUDA events;
+6. primitive benches: the entry point ``desamba_tpu_torch.tools.micro`` at
+   the TPU tools' full shapes and trip counts, which launches each of the 17
+   kernels of its 16 sites (K4, K6, K5: gathers, dynamic-offset loads in a
+   one-block loop, a block, an asynchronous copy, a launch); each output
+   bit-equal to its plain version and, where there is one, to the one index
+   or elementwise PyTorch call with a sum that computes the same function;
+7. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
+   seeded (R, 128) tiles with the edge cases of the CPU test, bit-equal to
+   the plain versions;
+8. capability probes: the entry point ``desamba_tpu_torch.tools.caps``
+   (K7), every probe OK against its numpy expression (it raises otherwise)
+   and bit-equal to its plain version.
+
+Phases 6-8 zero their wrappers' launch counts just before the entry point
+runs and read them just after, as phase 5 does. Their kernels are timed in
+a replayed CUDA graph (``micro.graph_ms``; phase 6 reports the bench's own
+times): most are shorter than the tens of microseconds a Python wrapper
+takes to submit a launch, so events around eager launches would time the
+host. Plain versions and library calls are
+timed by events around eager calls, as a caller runs them.
 
 Each kernel's bound is the larger of the bytes its function must move
 (what this run's data needs of each input, read once; each output written
 once) over the card's memory rate and the least operations that function
 needs on these inputs over the card's int32 rate (the constants below);
-``rescore_bytes`` and ``cmpcount_ops`` say what is counted. A kernel or
+``rescore_bytes``, ``cmpcount_ops`` and ``micro.sites`` say what is
+counted. A kernel or
 library call faster than its bound fails the run, since the bound would
 not be one. Any mismatch or exception exits non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -259,12 +280,14 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from desamba_tpu_torch.engine.device import plops
     from desamba_tpu_torch.engine.device import rescore_pl as trp
     from desamba_tpu_torch.engine.device.classifier import DeviceClassifier
     from desamba_tpu_torch.engine.gold.classify import ClassifyEngine, Options
     from desamba_tpu_torch.index.build import build_index
     from desamba_tpu_torch.io.sam import format_result
     from desamba_tpu_torch.kernels import build
+    from desamba_tpu_torch.tools import caps, micro
     from desamba_tpu_torch.tools import gather_bench as gb
     from desamba_tpu_torch.tools.cmpcount import (compare_count,
                                                   compare_count_plain)
@@ -343,7 +366,7 @@ def main():
     if launches["rescore"] <= 0:
         failures.append("kernel rescore was not launched by the main path")
 
-    # ---- 4. kernels against their plain versions ------------------------------
+    # ---- 4. kernels against their plain versions ----------------------------
     dix = dev.dix
     recs = []
     for width, inp in sorted(captured.items()):
@@ -451,6 +474,134 @@ def main():
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+
+    # ---- 6. primitive benches (K4, K6, K5) ----------------------------------
+    dev0 = torch.device("cuda")
+
+    def max_err(a, b):
+        if a.shape != b.shape:
+            return 1 << 62
+        return int((a.long() - b.long()).abs().max())
+
+    def small_record(name, source, replaces, launched, err, ms, plain_ms,
+                     lib_ms, nbytes, ops):
+        bms, by = bound(nbytes, ops)
+        log(f"{name}: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, "
+            f"bound {bms:.6f} ms ({by}; {nbytes} bytes, {ops} operations), "
+            f"{launched} launches, max_abs_err {err}")
+        if launched <= 0:
+            failures.append(f"{name} was not launched through its entry point")
+        if err != 0:
+            failures.append(f"{name} differs from its plain version or its "
+                            f"library call: max_abs_err {err}")
+        if ms < bms or (lib_ms is not None and lib_ms < bms):
+            failures.append(f"{name}: kernel {ms} ms or library {lib_ms} ms "
+                            f"beat the bound {bms} ms")
+        records.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms})
+
+    for f in micro.WRAPPERS:
+        f.launches = 0
+    torch.cuda.synchronize()
+    mres = micro.main(["all", "--seed", str(args.seed)])
+    torch.cuda.synchronize()
+    log("primitive bench launches: " + json.dumps(
+        {f.__name__: f.launches for f in micro.WRAPPERS}))
+    if sum(r["launches"] for r in mres.values()) != sum(
+            f.launches for f in micro.WRAPPERS):
+        failures.append("micro launches do not add up over its sites")
+    if len(mres) != 17:
+        failures.append(f"micro ran {len(mres)} kernels, not 17")
+    for key, r in mres.items():
+        err = max_err(r["out"], r["plain"]())
+        lib_ms = None
+        if r["library"] is not None:
+            err = max(err, max_err(r["out"], r["library"]()))
+            lib_ms = cuda_ms(r["library"], 3)
+        if key == "K6.0":
+            log(f"K6.0 launch floor: {r['graph_ms'] * 1e3:.3f} us per launch "
+                f"in a CUDA graph, {r['eager_ms'] * 1e3:.3f} us by events "
+                f"over back-to-back eager launches, "
+                f"{r['host_sync_ms'] * 1e3:.3f} us of host time per "
+                f"launch-and-synchronize")
+        small_record(r["name"], "desamba_tpu_torch/kernels/micro.cu",
+                     r["replaces"], r["launches"], err,
+                     r["ms"], cuda_ms(r["plain"], 2), lib_ms, r["nbytes"](),
+                     r["ops"]())
+    del mres
+    torch.cuda.empty_cache()
+
+    # ---- 7. tile helpers (K2) -----------------------------------------------
+    for f in plops.HARNESS.values():
+        f.launches = 0
+    cases = plops.run_harness(dev0, args.seed)
+    torch.cuda.synchronize()
+    by_body = {k: f.launches for k, f in plops.HARNESS.items()}
+    log(f"tile helpers: {len(cases)} cases, launches " + json.dumps(by_body))
+    if min(by_body.values()) <= 0:
+        failures.append("a tile-helper body was not launched: "
+                        + json.dumps(by_body))
+    err, first = 0, {}
+    for c in cases:
+        e = max_err(c["out"].cpu(), c["plain_out"])
+        if e:
+            log(f"tile helper {c['body']} ({c['case']}): max_abs_err {e}")
+        err = max(err, e)
+        first.setdefault(c["body"], c)
+    # one launch of each of the ten bodies, on its first case
+    ms = plain_ms = 0.0
+    nbytes = ops = 0
+    for name, c in first.items():
+        ms += micro.graph_ms(
+            lambda: plops.HARNESS[name](*c["inputs"], **c["kw"]), dev0, 50)
+        plain_ms += cuda_ms(
+            lambda: plops.PLAIN[name](*c["inputs"], **c["kw"]), 3)
+        nbytes += tensor_bytes(*c["inputs"], c["out"])
+        ops += c["out"].numel()
+    small_record("plops", "desamba_tpu_torch/kernels/plops.cu",
+                 "tests/test_plops.py:16", sum(by_body.values()), err, ms,
+                 plain_ms, None, nbytes, ops)
+
+    # ---- 8. capability probes (K7) ------------------------------------------
+    for f in caps.WRAPPERS:
+        f.launches = 0
+    cres = caps.main(["--seed", str(args.seed)])
+    torch.cuda.synchronize()
+    by_site = {f.__name__: f.launches for f in caps.WRAPPERS}
+    log("capability probe launches: " + json.dumps(by_site))
+    if by_site != {"call_probe": 13, "smem_sum": 1, "scalar_block": 1}:
+        failures.append("a capability probe was not launched once through "
+                        "the entry point: " + json.dumps(by_site))
+    for name, wrapper, site, library in (
+            ("caps_call", caps.call_probe, "tools/pallas_caps.py:36", None),
+            ("caps_scalar_out", caps.smem_sum, "tools/pallas_caps.py:153",
+             lambda t: t.sum(dtype=torch.int32).reshape(1)),
+            ("caps_scalar_in", caps.scalar_block, "tools/pallas_caps.py:225",
+             lambda t, s: t + s)):
+        probes = [r for r in cres.values() if r["site"] == site]
+        err, ms, plain_ms, nbytes, ops = 0, 0.0, 0.0, 0, 0
+        lib_ms = None
+        for r in probes:
+            x = r["inputs"]
+            err = max(err, max_err(r["out"], r["plain"](*x)))
+            ms += micro.graph_ms(lambda: r["fn"](*x), dev0, 50)
+            plain_ms += cuda_ms(lambda: r["plain"](*x), 3)
+            nbytes += tensor_bytes(*x, r["out"])
+            ops += r["out"].numel()
+            if library is not None:
+                err = max(err, max_err(r["out"], library(*x)))
+                lib_ms = cuda_ms(lambda: library(*x), 20)
+        if len(probes) != (13 if wrapper is caps.call_probe else 1):
+            failures.append(f"{name}: {len(probes)} probes ran")
+        small_record(name, "desamba_tpu_torch/kernels/caps.cu", site,
+                     by_site[wrapper.__name__], err, ms, plain_ms, lib_ms,
+                     nbytes, ops)
+    if len(records) != 24:
+        failures.append(f"{len(records)} kernel records, not 24")
     log(json.dumps({"kernels": records}))
     if failures:
         for f in failures:

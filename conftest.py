@@ -9,10 +9,28 @@ their tests ("native library unavailable"). Here every process takes an
 ``fcntl`` lock and loads the library under it: the first one builds it, the
 rest find it built. The port's own library (``desamba_tpu_torch/io``) is
 built the same way, so that the workers do not all compile it at once.
+
+The fixture below contains a second fault of the same kind. The JAX
+tests keep a persistent compilation cache in ``/tmp/desamba_jax_cache``
+(``tests/conftest.py``), and ``tools/multihost_worker.py`` uses the same
+directory. In a multi-process run jaxlib writes cache entries from process
+0 only (``jax/_src/compiler.py``: "Not writing persistent cache entry since
+process_id != 0"). So after a first run of ``tests/test_multihost.py``,
+worker 0 loads its programs from the cache while worker 1 compiles them
+anew every time, reaches the final allgather more than 30 s after worker 0
+(the gloo key exchange's timeout, fixed inside jaxlib), and the test fails
+on every later run over the same ``/tmp``. With the cache switched off in
+the processes that tests start, both workers compile, as on a first run,
+and arrive together. The fixture runs at the first test of each process
+that runs tests, so the test processes themselves have imported jax by then
+(``tests/conftest.py``'s ``pytest_configure``) and keep their cache, and
+the pytest-xdist controller does not hand the setting to its workers.
 """
 import fcntl
 import os
 import tempfile
+
+import pytest
 
 
 def pytest_configure(config):
@@ -30,3 +48,9 @@ def pytest_configure(config):
                 pass    # the port's tests raise it again where they need it
         finally:
             fcntl.flock(f, fcntl.LOCK_UN)
+
+
+@pytest.fixture(scope="session", autouse=True)
+def no_persistent_jax_cache_in_started_processes():
+    os.environ["JAX_ENABLE_COMPILATION_CACHE"] = "false"
+    yield

@@ -34,10 +34,13 @@ means bit-equal):
   the JAX code relies on either rule.
 
 Every stage takes an explicit ``device``; the entry points
-(``DeviceClassifier``, ``cli``, ``tools.gather_bench``) default to
-``cuda``, and there is no ``torch.compile``. The hand-written kernels live
-in ``kernels/*.cu`` and are built with ``nvcc`` at first use
-(``kernels/build.py``): the per-read 9-mer SDP rescore
-(``rescore.cu``) and the compare-count lookup (``cmpcount.cu``, wrapped
-by ``tools/cmpcount.py``).
+(``DeviceClassifier``, ``cli``, ``tools.gather_bench``, ``tools.micro``,
+``tools.caps``) default to ``cuda``, and there is no ``torch.compile``. The
+hand-written kernels live in ``kernels/*.cu`` and are built with ``nvcc``
+at first use (``kernels/build.py``): the per-read 9-mer SDP rescore
+(``rescore.cu``), the compare-count lookup (``cmpcount.cu``, wrapped by
+``tools/cmpcount.py``), the tile helpers (``plops.cuh`` and its harness
+``plops.cu``, wrapped by ``engine/device/plops.py``), the primitive benches
+(``micro.cu``, ``tools/micro.py``) and the capability probes (``caps.cu``,
+``tools/caps.py``).
 """

@@ -1,6 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each ``*.cu`` source here exposes a plain C launcher. It is compiled with
+Each ``*.cu`` source here exposes plain C launchers (the ``*.cuh`` headers
+beside them are shared device code). It is compiled with
 ``nvcc`` for ``sm_90a`` into ``kernels/_build/`` (listed in .gitignore) at
 first use, and loaded with ctypes: no PyTorch headers, so a build takes
 seconds. Nothing is compiled at import time, and nothing catches a failed
@@ -16,7 +17,7 @@ import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("rescore.cu", "cmpcount.cu")
+SOURCES = ("rescore.cu", "cmpcount.cu", "plops.cu", "micro.cu", "caps.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -31,8 +32,14 @@ def _nvcc():
 
 
 def _lib_path(src):
-    with open(os.path.join(_HERE, src), "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, tagged by the source, every ``*.cuh`` header
+    beside it (a source may include any of them, so an edit to a header
+    must not leave a stale library behind) and the flags."""
+    tag = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_HERE) if f.endswith(".cuh"))
+    for name in [src, *headers]:
+        with open(os.path.join(_HERE, name), "rb") as f:
+            tag.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{src[:-3]}_{tag.hexdigest()[:12]}.so")
 
 
@@ -76,21 +83,49 @@ def load(src):
     return _libs[src]
 
 
-def rescore_lib():
-    lib = load("rescore.cu")
+def _bound(src, signatures):
+    """The library of ``src`` with each launcher's ctypes signature set:
+    ``signatures`` maps a function name to a string of ``p`` (a pointer or
+    the stream: ``c_void_p``) and ``i`` (``c_int``). Every launcher
+    returns the CUDA error code of its launch."""
+    lib = load(src)
     if not getattr(lib, "_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rescore_launch.argtypes = [p] * 12 + [i] * 8 + [p]
-        lib.rescore_launch.restype = ctypes.c_int
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+        for name, sig in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [kinds[c] for c in sig]
+            fn.restype = ctypes.c_int
         lib._bound = True
     return lib
+
+
+def rescore_lib():
+    return _bound("rescore.cu", {"rescore_launch": "p" * 12 + "i" * 8 + "p"})
 
 
 def cmpcount_lib():
-    lib = load("cmpcount.cu")
-    if not getattr(lib, "_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cmpcount_launch.argtypes = [p] * 3 + [i] * 5 + [p]
-        lib.cmpcount_launch.restype = ctypes.c_int
-        lib._bound = True
-    return lib
+    return _bound("cmpcount.cu", {"cmpcount_launch": "ppp" + "iiiii" + "p"})
+
+
+def plops_lib():
+    # body, a, b, out, R, n_rows, eight int parameters, stream
+    return _bound("plops.cu", {"plops_launch": "ipppii" + "i" * 8 + "p"})
+
+
+def micro_lib():
+    return _bound("micro.cu", {
+        "micro_rowgather": "ppp" + "iii" + "p",
+        "micro_egather": "ppp" + "iiii" + "p",
+        "micro_dynslice": "ppp" + "iiiiii" + "p",
+        "micro_colgather": "ppp" + "iiii" + "p",
+        "micro_gridstep": "pp" + "ii" + "p",
+        "micro_dmaloop": "ppp" + "iii" + "p",
+        "micro_scalarloop": "pp" + "i" + "p",
+        "micro_oneprog": "pp" + "i" + "p",
+        "micro_vecwork": "pp" + "ii" + "p",
+    })
+
+
+def caps_lib():
+    # probe, a, b, out, the table's rows, stream
+    return _bound("caps.cu", {"caps_launch": "ippp" + "i" + "p"})

@@ -31,6 +31,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "plops.cuh"
+
+using po::ule;   // the unsigned compares are the helper library's
+using po::ult;
+
 #define K9 9
 #define OVER 50
 #define C_CAP 8
@@ -69,12 +74,6 @@ struct Params {
 
 __device__ __forceinline__ int w32(long long x) {
   return (int)(unsigned)(unsigned long long)x;
-}
-__device__ __forceinline__ bool ult(int a, int b) {
-  return (unsigned)a < (unsigned)b;
-}
-__device__ __forceinline__ bool ule(int a, int b) {
-  return (unsigned)a <= (unsigned)b;
 }
 __device__ __forceinline__ int iabs(int x) {
   return x < 0 ? (int)(0u - (unsigned)x) : x;

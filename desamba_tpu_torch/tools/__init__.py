@@ -1,1 +1,2 @@
-"""Entry points beside the classifier: the gather-cost bench and its K3 kernel."""
+"""Entry points beside the classifier: the gather-cost bench with its K3
+kernel, the primitive benches and the capability probes."""

@@ -1,0 +1,239 @@
+"""The capability probes (K7): each probe of the port's ``tools/caps.py`` (on
+the CPU, so its plain version) == the Pallas kernel body of
+``tools/pallas_caps.py`` it replaces, run in interpret mode on the same
+seeded inputs, == the numpy expression the port's entry point holds the
+card's kernels against, bit for bit (tolerance 0: everything is integer).
+
+The tool runs its probes when imported, so its twelve ``call`` bodies and
+its two other call sites are restated here verbatim, with the lines they
+restate."""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from desamba_tpu_torch.tools import caps  # noqa: E402
+
+V, S = pltpu.VMEM, pltpu.SMEM
+OUT = jax.ShapeDtypeStruct((8, 128), jnp.int32)
+
+
+def call(k, out_shape, *specs):                          # :34-40
+    def f(*args):
+        return pl.pallas_call(
+            k, out_shape=out_shape,
+            in_specs=[pl.BlockSpec(memory_space=s) for s in specs],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+            interpret=True)(*args)
+    return jax.jit(f)
+
+
+def k_sub(t, i, o):                                      # :50-51
+    o[:] = jnp.take_along_axis(t[:], i[:], axis=0)
+
+
+def k_lane(t, i, o):                                     # :73-74
+    o[:] = jnp.take_along_axis(t[:], i[:], axis=1)
+
+
+def k_roll(t, s, o):                                     # :87-88
+    o[:] = pltpu.roll(t[:], s[0], 1)
+
+
+def k_roll0(t, s, o):                                    # :97-98
+    o[:] = pltpu.roll(t[:], s[0], 0)
+
+
+def k_lds(t, s, o):                                      # :111-112
+    o[:] = t[:, pl.ds(s[0], 128)]
+
+
+def k_2d(t, s, o):                                       # :121-122
+    o[:] = jax.lax.dynamic_slice(t[:], (s[0], s[1]), (8, 128))
+
+
+def k_u32(t, o):                                         # :137-141
+    v = t[:]
+    v = v ^ (v >> jnp.uint32(7))
+    v = v * jnp.uint32(0x9E3779B1)
+    o[:] = (v >> jnp.uint32(16)).astype(jnp.int32)
+
+
+def k_smem_out(t, o):                                    # :148-149
+    o[0] = jnp.sum(t[:])
+
+
+def f_smem(t):                                           # :152-156
+    return pl.pallas_call(
+        k_smem_out, out_shape=jax.ShapeDtypeStruct((1,), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=V)],
+        out_specs=pl.BlockSpec(memory_space=S), interpret=True)(t)
+
+
+def k_while(t, o):                                       # :163-172
+    def cond(c):
+        return c[0] < 8
+
+    def body(c):
+        i, acc = c
+        return i + 1, acc + jnp.sum(t[pl.ds(i, 1), :])
+
+    _, acc = jax.lax.while_loop(cond, body, (jnp.int32(0), jnp.int32(0)))
+    o[:] = jnp.full((8, 128), acc, jnp.int32)
+
+
+def k_u8(t, o):                                          # :183-184
+    o[:] = t[:].astype(jnp.int32)[:8] + 1
+
+
+def k_argmax(t, o):                                      # :191-194
+    m = jnp.max(t[:], axis=1, keepdims=True)
+    am = jnp.argmax(t[:], axis=1).astype(jnp.int32)[:, None]
+    o[:] = jnp.broadcast_to(m + am, (8, 128))
+
+
+def k_dynw(t, s, o):                                     # :201-203
+    o[:] = jnp.zeros((8, 128), jnp.int32)
+    o[pl.ds(s[0], 1), :] = t[pl.ds(0, 1), :]
+
+
+def k_cumsum(t, o):                                      # :212-213
+    o[:] = jnp.cumsum(t[:], axis=1)
+
+
+def k_s2(t, s, o):                                       # :220-221
+    o[:] = t[:] + s[0, 0]
+
+
+def f_s2(t, s):                                          # :224-229
+    return pl.pallas_call(
+        k_s2, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=V),
+                  pl.BlockSpec((1, 1), memory_space=S)],
+        out_specs=pl.BlockSpec(memory_space=V), interpret=True)(t, s)
+
+
+# the port's probe name -> the TPU tool's function over the same inputs
+PALLAS = {
+    "take_along_axis axis=0 (8,128) from (8,128)": call(k_sub, OUT, V, V),
+    "take_along_axis axis=0 (8,128) from (32,128)": call(k_sub, OUT, V, V),
+    "take_along_axis axis=1 (8,128) from (8,128)": call(k_lane, OUT, V, V),
+    "roll dynamic shift axis=1": call(k_roll, OUT, V, S),
+    "roll dynamic shift axis=0": call(k_roll0, OUT, V, S),
+    "lane-dim dynamic slice (8, 512)[:, o:o+128]": call(k_lds, OUT, V, S),
+    "dynamic_slice both dims (64,512)->(8,128)": call(k_2d, OUT, V, S),
+    "uint32 mul/xor/shift": call(k_u32, OUT, V),
+    "1-element output (the tile's sum)": jax.jit(f_smem),
+    "while_loop scalar state + row reads": call(k_while, OUT, V),
+    "uint8 load + cast": call(k_u8, OUT, V),
+    "max/argmax along lanes": call(k_argmax, OUT, V),
+    "dynamic row write o[i] = v": call(k_dynw, OUT, V, S),
+    "cumsum along lanes": call(k_cumsum, OUT, V),
+    "(1,1) scalar operand": jax.jit(f_s2),
+}
+NAMES = [p[2][0] for p in caps.probes()]
+
+
+def _inputs(variant):
+    """The tool's own inputs (seed 0), or a second draw with other
+    scalars, ties for the argmax and words that make the sums wrap."""
+    if variant == "tool":
+        return caps.make_inputs(0)
+    x = caps.make_inputs(11)
+    x["tab8"] = (x["tab8"].astype(np.int64) * 40_000_000 - (1 << 31)).astype(
+        np.int32)
+    x["tab8"][2, 5] = x["tab8"][2, 90] = (1 << 31) - 1      # a tie: first wins
+    x["tab8"][3, :] = -7                                    # all equal
+    x.update(sh=np.array([127], np.int32), off=np.array([384], np.int32),
+             off2=np.array([56, 0], np.int32), row=np.array([7], np.int32),
+             s2=np.array([[-(1 << 31)]], np.int32))
+    return x
+
+
+@pytest.mark.parametrize("variant", ["tool", "edges"])
+@pytest.mark.parametrize("name", NAMES)
+def test_probe_matches_its_pallas_body(name, variant):
+    assert sorted(NAMES) == sorted(PALLAS)
+    x = _inputs(variant)
+    site, fn, (_, kernel, args, plain, expect) = next(
+        p for p in caps.probes() if p[2][0] == name)
+    arrays = [x[a] for a in args]
+    n0 = [f.launches for f in caps.WRAPPERS]
+    got = fn(*(torch.from_numpy(a) for a in arrays))
+    assert [f.launches for f in caps.WRAPPERS] == n0      # the CPU path
+    assert got.dtype == torch.int32
+    j_in = [jnp.asarray(a.view(np.uint32) if kernel == "u32" else a)
+            for a in arrays]
+    exp = np.asarray(PALLAS[name](*j_in))
+    assert got.shape == exp.shape and np.array_equal(got.numpy(), exp)
+    assert np.array_equal(expect(*arrays), exp)
+    assert site.startswith("tools/pallas_caps.py:")
+
+
+def test_entry_point_on_the_cpu_prints_ok_per_probe(capsys):
+    res = caps.main(["--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == [f"{n}: OK" for n in NAMES] and len(lines) == 15
+    assert list(res) == NAMES
+    sites = [r["site"] for r in res.values()]
+    assert sites.count("tools/pallas_caps.py:36") == 13
+    assert sites.count("tools/pallas_caps.py:153") == 1
+    assert sites.count("tools/pallas_caps.py:225") == 1
+    for r in res.values():
+        assert torch.equal(r["out"], r["plain"](*r["inputs"]))
+
+
+def test_entry_point_raises_on_the_first_wrong_probe(monkeypatch, capsys):
+    """Unlike the TPU tool, which prints FAIL and goes on."""
+    wrong = list(caps.CALL_PROBES)
+    name, kernel, args, plain, expect = wrong[3]
+    wrong[3] = (name, kernel, args, lambda t, s: plain(t, s) + 1, expect)
+    monkeypatch.setattr(caps, "CALL_PROBES", tuple(wrong))
+    with pytest.raises(RuntimeError, match="roll dynamic shift axis=1: WRONG"):
+        caps.main(["--device", "cpu"])
+    assert capsys.readouterr().out.splitlines() == [
+        f"{n}: OK" for n in NAMES[:3]]
+
+
+def test_wrappers_check_their_inputs_and_device():
+    t = torch.zeros(8, 128, dtype=torch.int32)
+    s = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        caps.smem_sum(t.to("meta"))
+    with pytest.raises(ValueError, match="inputs must be"):
+        caps.smem_sum(t.long())
+    with pytest.raises(ValueError, match="inputs must be"):
+        caps.scalar_block(t, s)                   # the scalar is (1, 1)
+    with pytest.raises(ValueError, match="expected 2 inputs"):
+        caps.call_probe("roll dynamic shift axis=0", t)
+    with pytest.raises(ValueError, match="no probe named"):
+        caps.call_probe("nothing", t)
+    with pytest.raises(ValueError, match="inside the array"):
+        caps.call_probe("lane-dim dynamic slice (8, 512)[:, o:o+128]",
+                        torch.zeros(8, 512, dtype=torch.int32), s + 385)
+
+
+def test_cuda_path_builds_the_kernel_or_raises(monkeypatch):
+    """With no nvcc, a launch fails in the build: nothing falls back to the
+    plain version."""
+    import shutil
+
+    from desamba_tpu_torch.kernels import build
+
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is present")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.caps_lib()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.plops_lib()
+
+
+def test_entry_point_needs_a_card_for_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        caps.main([])

@@ -25,6 +25,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _assert_same_index(exp, got):
     assert type(got).__module__ == "desamba_tpu_torch.index.build"
+    # occ_prefix is built lazily, and the shared index of a test run has it
+    # once any earlier test of this process has asked for it
+    if exp.occ_prefix is not None:
+        got.build_occ_prefix()
     for f in dataclasses.fields(exp):
         e, g = getattr(exp, f.name), getattr(got, f.name)
         if isinstance(e, np.ndarray):

@@ -148,3 +148,18 @@ def test_scatter_out_of_bounds_raises_in_torch_drops_in_port():
     gi = np.array([-7, -1, 9, 2], np.int64)
     assert take(torch.from_numpy(src), torch.from_numpy(gi)).tolist() == \
         np.asarray(jnp.asarray(src)[jnp.asarray(gi)]).tolist()
+
+
+def test_started_processes_get_no_persistent_jax_cache():
+    """The root conftest switches the JAX compilation cache off for the
+    processes that tests start (the two workers of test_multihost.py must
+    both compile), and leaves this process's cache on."""
+    import jax
+
+    assert os.environ["JAX_ENABLE_COMPILATION_CACHE"] == "false"
+    assert jax.config.jax_enable_compilation_cache is True
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax; print(jax.config.jax_enable_compilation_cache)"],
+        capture_output=True, text=True, check=True, cwd=REPO)
+    assert out.stdout.strip() == "False"
