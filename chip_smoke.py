@@ -19,8 +19,10 @@ and a C compiler. Phases:
    counts are zeroed just before and read just after this run;
 4. K1: the rescore kernel's wrapper on the inputs the main path gave it
    (the first main batch and the first M3 sub-batch), bit-equal
-   (tolerance 0) to its plain version on every row with chains, and both
-   timed;
+   (tolerance 0) to its plain version on every row (chains and the three
+   flag columns), both timed; per width, the rows with chains, the steps
+   in all and in the longest walk, the shared memory a block and
+   ``ptxas``'s registers, stack and spills;
 5. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
    at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
    launches the compare-count kernel (K3) on a sorted table with one lane
@@ -30,8 +32,8 @@ and a C compiler. Phases:
    kernel, plain version and searchsorted timed by CUDA events;
 6. primitive benches: the entry point ``desamba_tpu_torch.tools.micro`` at
    the TPU tools' full shapes and trip counts, which launches each of the 17
-   kernels of its 16 sites (K4, K6, K5: gathers, dynamic-offset loads in a
-   one-block loop, a block, an asynchronous copy, a launch); each output
+   kernels of its 16 sites (K4, K6, K5: gathers, dynamic-offset row loads
+   over the whole card, a block, an asynchronous copy, a launch); each output
    bit-equal to its plain version and, where there is one, to the one index
    or elementwise PyTorch call with a sum that computes the same function;
 7. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
@@ -151,6 +153,19 @@ def card_line():
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_lines(out, kernel):
+    """What ``nvcc -Xptxas -v`` said of one kernel: its stack, spills,
+    registers and shared memory, one string."""
+    lines, mine = [], False
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            mine = kernel in ln
+        if mine and ("stack" in ln or "registers" in ln):
+            lines.append(ln.split(":", 1)[-1].strip() if "ptxas" in ln
+                         else ln.strip())
+    return " | ".join(lines) or "not reported"
 
 
 def cuda_ms(fn, reps):
@@ -297,11 +312,14 @@ def main():
     log(card)
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    for src, out in build.build_all().items():
+    built = build.build_all()
+    for src, out in built.items():
         regs = [ln.strip() for ln in out.splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"built {src}: " + " | ".join(regs[-2:]))
     log(f"kernel build {time.perf_counter() - t0:.1f} s")
+    k1_ptxas = ptxas_lines(built["rescore.cu"], "rescore_kernel")
+    log(f"ptxas rescore_kernel: {k1_ptxas}")
 
     # ---- 2. data ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -384,22 +402,28 @@ def main():
         ms = cuda_ms(lambda: trp.rescore_cuda(prep), 5)
         # operations: one per step of the walk and the DP (flags column 2),
         # a lower bound
-        steps = int(fl_k[:, 2].to(torch.int64).sum())
+        step_col = fl_k[:, 2].to(torch.int64)
+        steps, max_steps = int(step_col.sum()), int(step_col.max())
         nbytes = rescore_bytes(host, rows, touched.spans)
         bnd = bound(nbytes, steps)
-        ck = ch_k.cpu().numpy()[rows].astype(np.int64)
-        fk = fl_k.cpu().numpy()[rows].astype(np.int64)
-        cp = ch_p.numpy()[rows].astype(np.int64)
-        fp = fl_p.numpy()[rows].astype(np.int64)
+        # every row: those with chains, and the rows without, which the
+        # kernel copies through with zero flags
+        ck = ch_k.cpu().numpy().astype(np.int64)
+        fk = fl_k.cpu().numpy().astype(np.int64)
+        cp = ch_p.numpy().astype(np.int64)
+        fp = fl_p.numpy().astype(np.int64)
         err = int(max(np.abs(ck - cp).max(initial=0),
                       np.abs(fk - fp).max(initial=0)))
         n_fb = int(fk[:, 0].sum())
+        smem = trp.smem_bytes(width, prep["rk_vals"].shape[2])
         log(f"rescore width {width}: batch of {prep['scal'].shape[0]} rows, "
-            f"{len(rows)} with chains: kernel {ms:.3f} ms, plain "
+            f"{len(rows)} with chains: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.1f} ms on those rows, bound {bnd[0]:.6f} ms "
             f"({bnd[1]}; {nbytes} bytes, {span_words(touched.spans)} "
-            f"reference words; {steps} steps); max_abs_err {err}, "
-            f"{n_fb} rows fell back")
+            f"reference words); steps {steps} in all, {max_steps} in the "
+            f"longest walk; shared memory {smem} bytes a block; ptxas "
+            f"{k1_ptxas}; max_abs_err {err} over all "
+            f"rows, {n_fb} rows fell back")
         if len(rows) == 0:
             failures.append(f"no rescore rows checked at width {width}")
         if err != 0:

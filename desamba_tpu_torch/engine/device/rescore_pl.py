@@ -13,11 +13,15 @@ from __future__ import annotations
 import torch
 
 from .intops import I32, I64
-from .rescore import C_CAP, CF_N, K9, RescoreIn, _pack2
+from .rescore import C_CAP, CF_N, K9, S_CAP, RescoreIn, _pack2
 from . import rescore_ref
 
 INT32_MAX = (1 << 31) - 1
 LANES = 128
+HASH_CAP = 2 * C_CAP          # combine-hash entries per read
+WARPS_PER_BLOCK = 4           # reads per block of the kernel (one warp each)
+FENCE = 32                    # fence stride of the sorted 9-mer tables
+SMEM_MAX = 232448             # shared memory one block may use (227 KB)
 
 
 def _build_sorted_rk(codes_fr, read_len):
@@ -88,6 +92,26 @@ def rescore_plain(prep, rows=None):
     return torch.from_numpy(chains), torch.from_numpy(flags)
 
 
+def smem_bytes(A2: int, K: int) -> int:
+    """Dynamic shared memory of one block of the kernel: WARPS_PER_BLOCK
+    warps, each with its read's chains, combine-hash entries, sms slots,
+    window, A2 anchor records and the fence tables of both directions (every
+    FENCE-th of K sorted values), rounded to 16 bytes (``warp_words`` in
+    ``kernels/rescore.cu``). Raises ValueError on a shape whose block would
+    not fit the card's 227 KB."""
+    if A2 <= 0 or K <= 0:
+        raise ValueError(f"rescore kernel: anchors {A2} and table width {K} "
+                         f"must be positive")
+    words = (C_CAP * CF_N + 10 * HASH_CAP + 4 * S_CAP + LANES + 4 * A2
+             + 2 * -(-K // FENCE))
+    nbytes = WARPS_PER_BLOCK * 4 * (-(-words // 4) * 4)
+    if nbytes > SMEM_MAX:
+        raise ValueError(f"rescore kernel: {A2} anchors and a {K}-wide 9-mer "
+                         f"table need {nbytes} bytes of shared memory per "
+                         f"block, more than the card's {SMEM_MAX}")
+    return nbytes
+
+
 def rescore_cuda(prep):
     """Launch the CUDA kernel on a prepared batch of CUDA tensors.
     Returns (chains (B, C_CAP, CF_N), flags (B, 3)) int32 on the card."""
@@ -96,8 +120,10 @@ def rescore_cuda(prep):
     B, A2, af = prep["anchors"].shape
     if af != 4 or prep["chains"].shape[1:] != (C_CAP, CF_N):
         raise ValueError("rescore kernel: bad chain or anchor record shape")
-    if prep["schash"].shape[1:] != (2 * C_CAP, 3):
+    if prep["schash"].shape[1:] != (HASH_CAP, 3):
         raise ValueError("rescore kernel: schash must be (B, 16, 3)")
+    K = prep["rk_vals"].shape[2]
+    nbytes = smem_bytes(A2, K)
     for k in ("scal", "chains", "anchors", "schash", "codes_pk", "rk_vals",
               "rk_pos", "ref_words", "ref_off", "ref_len"):
         t = prep[k]
@@ -115,9 +141,9 @@ def rescore_cuda(prep):
         prep["rk_pos"].data_ptr(), prep["ref_words"].data_ptr(),
         prep["ref_off"].data_ptr(), prep["ref_len"].data_ptr(),
         chains_out.data_ptr(), flags.data_ptr(),
-        B, A2, prep["codes_pk"].shape[1], prep["rk_vals"].shape[2],
+        B, A2, prep["codes_pk"].shape[1], K,
         prep["ref_words"].shape[0] // LANES, prep["ref_off"].shape[0],
-        prep["n_bases"], prep["last_char"],
+        prep["n_bases"], prep["last_char"], nbytes,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rescore kernel launch failed: CUDA error {rc}")

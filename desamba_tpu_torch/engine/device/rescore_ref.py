@@ -58,7 +58,7 @@ def _clip(x, lo, hi):
 
 
 class _Read:
-    """One read's rescore program (the kernel body for one thread)."""
+    """One read's rescore program (what one warp of the kernel walks)."""
 
     def __init__(self, prep, b):
         s = prep["scal"][b]

@@ -100,7 +100,7 @@ def _bound(src, signatures):
 
 
 def rescore_lib():
-    return _bound("rescore.cu", {"rescore_launch": "p" * 12 + "i" * 8 + "p"})
+    return _bound("rescore.cu", {"rescore_launch": "p" * 12 + "i" * 9 + "p"})
 
 
 def cmpcount_lib():
@@ -116,7 +116,8 @@ def micro_lib():
     return _bound("micro.cu", {
         "micro_rowgather": "ppp" + "iii" + "p",
         "micro_egather": "ppp" + "iiii" + "p",
-        "micro_dynslice": "ppp" + "iiiiii" + "p",
+        "micro_dynslice": "ppp" + "i" * 7 + "p",
+        "micro_dynslice_blocks": "i",
         "micro_colgather": "ppp" + "iiii" + "p",
         "micro_gridstep": "pp" + "ii" + "p",
         "micro_dmaloop": "ppp" + "iii" + "p",

@@ -1,5 +1,5 @@
-// Primitive benches for Hopper: what one gather, one dynamic-offset load in
-// a sequential loop, one block, one asynchronous copy and one launch cost.
+// Primitive benches for Hopper: what a gather, dynamic-offset row loads, a
+// block, an asynchronous copy and a launch cost.
 //
 // Replaces the Pallas TPU kernels of tools/pallas_micro.py (rowgather :68,
 // egather :104, dynslice :137, gridstep :164, dmaloop :206),
@@ -11,11 +11,21 @@
 // kernels compute, bit for bit (sums and products wrap as int32: they go
 // through unsigned), and keeps real the one primitive they price:
 //
-// - dynslice_kernel: one block of 128 threads (thread = lane) walks the
-//   trips in order, one coalesced 512-byte row per load, from a table that
-//   stays in device memory (2 MB: L2-resident, too large for shared memory,
-//   where the TPU held it in VMEM). The loop is not closed in a formula and
-//   not spread over blocks: the trip is what is priced.
+// - dynslice_kernel: the trips are split over a grid that fills the card,
+//   each block a contiguous range of them (the wrapper's split,
+//   tools/micro.py dynslice_split). A warp loads each of its trips' rows
+//   coalesced, 16 bytes a lane of a 512-byte row, from a table that stays
+//   in device memory (2 MB: L2-resident, too large for shared memory, where
+//   the TPU held it in VMEM), and sums them in registers; the block's sums
+//   meet in shared memory and go into the zeroed output with one integer
+//   atomicAdd per word, exact in any order. Every trip's summed rows are
+//   loaded: the offsets are not closed in a formula, so the kernel stays
+//   right for any offset sequence, as the library call does. Rows of a
+//   slice that change no output (seven of K6.1a's eight) are not loaded,
+//   so the 8-row and the 1-row slice of K6.1 run the same kernel. It does
+//   not price a serial trip (PERF.md keeps what a one-block loop of them
+//   cost); it is bound by how fast the SMs read the table's rows from
+//   their caches.
 // - rowgather/egather/colgather: a gather is native here, one load per
 //   thread; tables that fit are staged in shared memory. Every trip's load
 //   is performed.
@@ -31,9 +41,10 @@
 //   threads, each iterating the dependent multiply-add chain.
 //   vecwork_kernel: a grid over all SMs, the int32 elementwise rate.
 //
-// What bounds them: the loops, latency (one block, dependent or serial
-// work by design); the gathers and vecwork, integer operations and L2 or
-// shared-memory loads. None is near the card's memory rate.
+// What bounds them: the one-block loops, latency (dependent or serial work
+// by design); dynslice, L2 reads; the gathers and vecwork, integer
+// operations and L2 or shared-memory loads. None is near the card's memory
+// rate.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -74,37 +85,66 @@ __global__ void egather_kernel(const int* __restrict__ tab,
   }
 }
 
-// out[r, :] = sum_{i < n} tab[off_i + r, :] for r < ROWS, where
-// off_i = ((s + i * mul) * scale) & mask and a slice of SL >= ROWS rows is
-// loaded each trip (the rows past ROWS are loaded and dropped, as the TPU
-// kernel loads an (8, 128) slice and keeps its first row).
-// One block of 128 threads.
-template <int SL, int ROWS>
-__global__ void dynslice_kernel(const int* __restrict__ tab,
-                                const int* __restrict__ s_ptr,
-                                int* __restrict__ out, int n, int mul,
-                                int scale, int mask) {
-  const int l = threadIdx.x;
+// out[r, :] += sum_{i in this block's trips} tab[off_i + r, :] for r < ROWS,
+// off_i = ((s + i * mul) * scale) & mask; block b takes the trips
+// [b * chunk, min(n, (b + 1) * chunk)), and out starts at 0. Warp w of the
+// block takes every DS_WARPS-th trip from the range's start + w, U trips at
+// a time so that U * ROWS row loads are in flight per lane.
+#define DS_WARPS 8
+template <int ROWS>
+__global__ void __launch_bounds__(DS_WARPS * 32)
+    dynslice_kernel(const int4* __restrict__ tab, const int* __restrict__ s_ptr,
+                    int* __restrict__ out, int n, int chunk, int mul,
+                    int scale, int mask) {
+  constexpr int U = 8 / ROWS;
+  __shared__ uint4 red[DS_WARPS][ROWS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned s = (unsigned)*s_ptr;
-  unsigned acc[ROWS];
+  const unsigned first = blockIdx.x * (unsigned)chunk;
+  const unsigned last = min((unsigned)n, first + (unsigned)chunk);
+  uint4 acc[ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0;
-  for (unsigned i = 0; i < (unsigned)n; ++i) {
+  for (int r = 0; r < ROWS; ++r) acc[r] = make_uint4(0, 0, 0, 0);
+  auto row = [&](unsigned i) {
     const unsigned off =
         ((s + i * (unsigned)mul) * (unsigned)scale) & (unsigned)mask;
-    const int* p = tab + (size_t)off * RW + l;
+    return tab + (size_t)off * (RW / 4) + lane;
+  };
+  auto add = [](uint4& a, int4 v) {
+    a.x += (unsigned)v.x;
+    a.y += (unsigned)v.y;
+    a.z += (unsigned)v.z;
+    a.w += (unsigned)v.w;
+  };
+  unsigned i = first + warp;
+  for (; i + (U - 1) * DS_WARPS < last; i += U * DS_WARPS) {
+    int4 v[U][ROWS];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] += (unsigned)p[r * RW];
+    for (int u = 0; u < U; ++u) {
+      const int4* p = row(i + u * DS_WARPS);
 #pragma unroll
-    for (int r = ROWS; r < SL; ++r) {
-      int dropped;    // performed: the compiler may not remove a volatile asm
-      asm volatile("ld.global.s32 %0, [%1];"
-                   : "=r"(dropped)
-                   : "l"(__cvta_generic_to_global(p + r * RW)));
+      for (int r = 0; r < ROWS; ++r) v[u][r] = __ldg(p + r * (RW / 4));
     }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) add(acc[r], v[u][r]);
+  }
+  for (; i < last; i += DS_WARPS) {
+    const int4* p = row(i);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) add(acc[r], __ldg(p + r * (RW / 4)));
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) out[r * RW + l] = (int)acc[r];
+  for (int r = 0; r < ROWS; ++r) red[warp][r][lane] = acc[r];
+  __syncthreads();
+  for (int w = threadIdx.x; w < ROWS * RW; w += DS_WARPS * 32) {
+    unsigned sum = 0;
+#pragma unroll
+    for (int k = 0; k < DS_WARPS; ++k)
+      sum += ((const unsigned*)red[k][w / RW])[w % RW];
+    atomicAdd((unsigned*)out + w, sum);
+  }
 }
 
 // out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l]
@@ -241,19 +281,39 @@ extern "C" int micro_egather(const int* tab, const int* idx, int* out, int eb,
   return (int)cudaGetLastError();
 }
 
-// tab (rows, 128) with every off_i + sl <= rows (the caller checks), s (1,),
-// out (rows_out, 128); (sl, rows_out) one of (8, 8), (8, 1), (1, 1)
+// the most dynslice blocks the card holds at once (blocks per SM at full
+// occupancy x SMs), for the wrapper's split; rows_out 8 or 1
+extern "C" int micro_dynslice_blocks(int rows_out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = rows_out == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            &per_sm, dynslice_kernel<8>, DS_WARPS * 32, 0)
+        : rows_out == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                              &per_sm, dynslice_kernel<1>, DS_WARPS * 32, 0)
+                        : cudaErrorInvalidValue;
+  return e == cudaSuccess ? per_sm * sms : -(int)e;
+}
+
+// tab (rows, 128), 16-byte aligned, with every off_i + rows_out <= rows
+// (the caller checks); s (1,); out (rows_out, 128) zeroed; blocks * chunk
+// >= n > (blocks - 1) * chunk; rows_out 8 or 1
 extern "C" int micro_dynslice(const int* tab, const int* s, int* out, int n,
-                              int mul, int scale, int mask, int sl,
-                              int rows_out, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+                              int blocks, int chunk, int mul, int scale,
+                              int mask, int rows_out, void* stream) {
+  if (n <= 0 || blocks <= 0 || chunk <= 0 ||
+      (long long)blocks * chunk < n || (long long)(blocks - 1) * chunk >= n)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (sl == 8 && rows_out == 8)
-    dynslice_kernel<8, 8><<<1, RW, 0, st>>>(tab, s, out, n, mul, scale, mask);
-  else if (sl == 8 && rows_out == 1)
-    dynslice_kernel<8, 1><<<1, RW, 0, st>>>(tab, s, out, n, mul, scale, mask);
-  else if (sl == 1 && rows_out == 1)
-    dynslice_kernel<1, 1><<<1, RW, 0, st>>>(tab, s, out, n, mul, scale, mask);
+  const int4* t4 = (const int4*)tab;
+  if (rows_out == 8)
+    dynslice_kernel<8><<<blocks, DS_WARPS * 32, 0, st>>>(t4, s, out, n, chunk,
+                                                         mul, scale, mask);
+  else if (rows_out == 1)
+    dynslice_kernel<1><<<blocks, DS_WARPS * 32, 0, st>>>(t4, s, out, n, chunk,
+                                                         mul, scale, mask);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

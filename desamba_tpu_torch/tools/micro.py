@@ -1,5 +1,5 @@
-"""Primitive benches: what a gather, a dynamic-offset load in a sequential
-loop, a block, an asynchronous copy and a launch cost on the card.
+"""Primitive benches: what a gather, dynamic-offset row loads, a block, an
+asynchronous copy and a launch cost on the card.
 
     python -m desamba_tpu_torch.tools.micro [which] [--device cuda]
 
@@ -8,7 +8,9 @@ Counterpart of ``tools/pallas_micro.py``, ``tools/pallas_micro3.py`` and
 ``micro3``, ``micro2`` (one tool's sites) or ``all`` (default). Each of the
 16 sites is one Pallas kernel of those tools, computed here by a kernel of
 ``kernels/micro.cu``; it prints one line: milliseconds per call and ns per
-unit (a gathered row or element, a loop trip, a block, a copy).
+unit (a gathered row or element, a loop trip, a block, a copy), or, for
+the dynamic-slice sites, whose trips the kernel spreads over the card, a
+throughput (trips and bytes of summed rows per second).
 
   micro    K4.1 row gather, K4.2 element gather, K4.3 dynamic-slice loop,
            K4.4 grid of 2,048 blocks, K4.5 serial 4-KB copies
@@ -60,6 +62,7 @@ FULL = dict(
     DMAN3=1 << 15,                                               # micro3
     LOOPN2=1 << 21, ONEP=1 << 19, VB=512, VPASS=256)             # micro2
 CHUNK_ELEMS = 1 << 24   # elements a plain version gathers per chunk
+DS_MIN_CHUNK = 32       # fewest trips a dynslice block takes
 
 
 def _check(name, *tensors):
@@ -184,7 +187,7 @@ def colgather(tab, idx, n, stage):
     return out
 
 
-# ---- sequential loops of dynamic-offset loads -------------------------------
+# ---- loops of dynamic-offset loads -----------------------------------------
 
 def slice_offsets(s, i, mul, scale, mask):
     """off_i = ((s + i * mul) * scale) & mask, for a tensor of trips i."""
@@ -217,15 +220,51 @@ def _check_loop(name, tab, s, mask, sl, rows_out):
     return cuda
 
 
+def dynslice_split(n, max_blocks):
+    """The kernel's grid for n trips: (blocks, chunk). Block b sums trips
+    [b * chunk, min(n, (b + 1) * chunk)): at most ``max_blocks`` blocks
+    (what the card holds at once) and at least DS_MIN_CHUNK trips each, so
+    that a short loop does not pay one block's atomics per trip. (0, 0) for
+    no trips."""
+    if n <= 0:
+        return 0, 0
+    chunk = max(DS_MIN_CHUNK, -(-n // max_blocks))
+    return -(-n // chunk), chunk
+
+
+_DS_BLOCKS: dict = {}   # (device, rows_out) -> resident dynslice blocks
+
+
+def _dynslice_blocks(rows_out):
+    """The most dynslice blocks the current card holds at once."""
+    from ..kernels.build import micro_lib
+
+    key = (torch.cuda.current_device(), rows_out)
+    if key not in _DS_BLOCKS:
+        nb = micro_lib().micro_dynslice_blocks(rows_out)
+        if nb <= 0:
+            raise RuntimeError(f"micro_dynslice_blocks failed: CUDA error "
+                               f"{-nb}")
+        _DS_BLOCKS[key] = nb
+    return _DS_BLOCKS[key]
+
+
 def dynslice(tab, s, n, mul, scale, mask, sl, rows_out):
     """out[r, :] = sum_{i < n} tab[off_i + r, :] for r < rows_out, off_i =
-    ((s + i * mul) * scale) & mask; the kernel loads ``sl`` rows a trip."""
+    ((s + i * mul) * scale) & mask. ``sl`` is the TPU kernel's slice height
+    (8 or 1); the kernel loads only the ``rows_out`` rows that are summed,
+    over a grid of blocks that each take a contiguous range of trips
+    (``dynslice_split``) and add their sums into a zeroed output."""
     if not _check_loop("dynslice", tab, s, mask, sl, rows_out):
         return dynslice_plain(tab, s, n, mul, scale, mask, rows_out)
     tab = tab.contiguous()
-    out = torch.empty(rows_out, RW, dtype=I32, device=tab.device)
-    _launch(dynslice, "micro_dynslice", tab, s, out, n, mul, scale, mask, sl,
-            rows_out)
+    if tab.data_ptr() % 16:
+        raise ValueError("dynslice: the table must be 16-byte aligned")
+    out = torch.zeros(rows_out, RW, dtype=I32, device=tab.device)
+    blocks, chunk = dynslice_split(n, _dynslice_blocks(rows_out))
+    if blocks:
+        _launch(dynslice, "micro_dynslice", tab, s, out, n, blocks, chunk,
+                mul, scale, mask, rows_out)
     return out
 
 
@@ -404,6 +443,8 @@ def sites(x, sizes=None):
             lambda: 4 * RW * (_distinct_rows(slice_offsets(
                 s, _arange(0, n, dev), mul, scale, mask), rows_out)
                 + rows_out) + 4)
+        if not dma:     # the trips run in parallel: a rate, not a trip's time
+            out[-1]["row_bytes"] = 4 * n * rows_out * RW
 
     # -- tools/pallas_micro.py
     tab, idxc, reps = x["tab"], x["idxc"], z["REPK"]
@@ -600,8 +641,14 @@ def main(argv=None, reps: int = 3, sizes=None):
             extra = (f"  (eager launches back to back {floor[1] * 1e3:.2f} "
                      f"us, host launch+sync {floor[2] * 1e3:.2f} us)")
         per = ms * 1e6 / site["units"]
+        if "row_bytes" in site:
+            rate = (f"throughput {site['units'] / ms / 1e6:10.4f} G "
+                    f"{site['unit']}s/s, {site['row_bytes'] / ms / 1e6:.1f} "
+                    f"GB/s of summed rows")
+        else:
+            rate = f"{per:12.4f} ns/{site['unit']}"
         print(f"{site['key']:6s}{site['label']:58s} {ms:11.5f} ms  "
-              f"{per:12.4f} ns/{site['unit']}{extra}", flush=True)
+              f"{rate}{extra}", flush=True)
         res[site["key"]] = dict(
             site, out=out, ms=ms, ns_per_unit=per,
             launches=sum(f.launches for f in WRAPPERS) - n0)

@@ -324,7 +324,11 @@ def test_entry_point_on_the_cpu(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("primitive benches, device=cpu")
     assert list(res) == KEYS and len(lines) == 1 + len(KEYS)
-    assert all(" ms " in ln and " ns/" in ln for ln in lines[1:])
+    loops = {"K4.3", "K6.1a", "K6.1b", "K5.b", "K5.b2"}
+    for key, ln in zip(KEYS, lines[1:]):
+        # the dynamic-slice trips run in parallel: a rate, not a trip's time
+        assert " ms " in ln and ((" G trips/s" in ln and " GB/s" in ln)
+                                 if key in loops else " ns/" in ln), ln
     assert "host launch+sync" in lines[6] and res["K6.0"]["host_sync_ms"] > 0
     assert res["K6.0"]["graph_ms"] > 0 and res["K6.0"]["eager_ms"] > 0
     for key, r in res.items():
@@ -336,6 +340,65 @@ def test_entry_point_on_the_cpu(capsys):
     one = micro.main(["micro2", "--device", "cpu"], reps=1, sizes=SIZES)
     assert list(one) == ["K5.a", "K5.b", "K5.b2", "K5.c", "K5.d"]
     capsys.readouterr()
+
+
+def _kernel_trips(first, last, warps, rows_out):
+    """The trips the warps of one dynslice block visit, restating the loops
+    of kernels/micro.cu dynslice_kernel: warp w starts at first + w and
+    takes every warps-th trip, U = 8 / rows_out at a time, then one at a
+    time below last."""
+    U = 8 // rows_out
+    seen = []
+    for w in range(warps):
+        i = first + w
+        while i + (U - 1) * warps < last:
+            seen += [i + u * warps for u in range(U)]
+            i += U * warps
+        while i < last:
+            seen.append(i)
+            i += warps
+    return seen
+
+
+@pytest.mark.parametrize("n, max_blocks, start", [
+    (1, 528, 5),               # one trip: one block
+    (40, 528, 3),              # fewer trips than blocks
+    (1000, 7, 11),             # the chunk does not divide n: a short last block
+    (4099, 128, -123457),      # a negative start
+])
+def test_dynslice_split_sums_to_the_whole_loop(world, n, max_blocks, start):
+    """The wrapper's split of the trips over the kernel's grid
+    (``dynslice_split``): every trip in exactly one block and, inside it, in
+    exactly one warp's loop; and the per-block partial sums (the plain
+    version over each block's trips, from its own start) add up to the whole
+    loop's, which is what the blocks' atomicAdds into the zeroed output
+    compute."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(micro.__file__), "..", "kernels",
+                            "micro.cu")).read()
+    warps = int(re.search(r"#define DS_WARPS (\d+)", src).group(1))
+    x, _ = world
+    tab = torch.from_numpy(x["tab"])
+    s = torch.tensor([start], dtype=torch.int32)
+    blocks, chunk = micro.dynslice_split(n, max_blocks)
+    assert 1 <= blocks <= max_blocks and chunk >= micro.DS_MIN_CHUNK
+    assert (blocks - 1) * chunk < n <= blocks * chunk
+    for mul, scale, mask, rows_out in ((7, 1, KR - 9, 8), (7, 1, KR - 9, 1),
+                                       (1, 8, KR - 9, 8), (7, 1, KR - 2, 1)):
+        trips = []
+        total = torch.zeros(rows_out, RW, dtype=torch.int64)
+        for b in range(blocks):
+            first, last = b * chunk, min(n, (b + 1) * chunk)
+            trips += _kernel_trips(first, last, warps, rows_out)
+            s_b = torch.tensor([start + first * mul], dtype=torch.int64)
+            total += micro.dynslice_plain(tab, micro.i32(s_b), last - first,
+                                          mul, scale, mask, rows_out)
+        assert sorted(trips) == list(range(n))
+        whole = micro.dynslice_plain(tab, s, n, mul, scale, mask, rows_out)
+        assert torch.equal(micro.i32(total), whole)
+    assert micro.dynslice_split(0, max_blocks) == (0, 0)
 
 
 def test_full_sizes_are_the_tools_own():

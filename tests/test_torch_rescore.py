@@ -8,6 +8,11 @@ Chains, fallback flags, reason bits and step counts must be equal on every
 row with n_chains > 0: mid-reference reads and reads in the last packed
 reference row (main batch, 64 anchors), and the M3 sub-batch of the repeat
 corpus (chain.M3_A2 = 512 anchors)."""
+import ctypes
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -126,3 +131,118 @@ def test_sorted_9mer_tables_match_jax(batches):
     assert_same(ev, gv, "sorted 9-mer values")
     assert_same(ep, gp, "sorted 9-mer positions")
     assert gv.dtype == gp.dtype == torch.int32
+
+
+# ---- the CUDA kernel's own source, run on the CPU ----------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+KERNELS = os.path.join(HERE, "..", "desamba_tpu_torch", "kernels")
+EMU_ARGS = ("p" * 12) + ("i" * 9)
+
+
+@pytest.fixture(scope="module")
+def rescore_emu(tmp_path_factory):
+    """kernels/rescore.cu compiled as host C++ over tests/cuda_host/warp_emu.h
+    (each warp's 32 lanes as coroutines, collectives emulated), loaded with
+    ctypes."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to emulate the kernel with")
+    so = str(tmp_path_factory.mktemp("rescore_emu") / "rescore_emu.so")
+    host = os.path.join(HERE, "cuda_host")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I", host,
+                    "-I", KERNELS, os.path.join(host, "rescore_emu.cpp"),
+                    "-o", so], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    lib.rescore_emulate.argtypes = [
+        ctypes.c_void_p if c == "p" else ctypes.c_int for c in EMU_ARGS]
+    lib.rescore_emulate.restype = ctypes.c_int
+    lib.rescore_emu_error.restype = ctypes.c_char_p
+    lib.rescore_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.rescore_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def _prep(idx, inp):
+    from desamba_tpu_torch.engine.device import rescore as tr
+    from desamba_tpu_torch.engine.device import rescore_pl as trp
+    from desamba_tpu_torch.engine.device.arrays import DeviceIndex
+
+    tix = DeviceIndex.build(idx, "cpu")
+    prep = trp.prepare(tr.RescoreIn(*[T(f) for f in inp]),
+                       trp.ref_words(tix.ref_pk), tix.ref_off,
+                       tix.ref_len_arr, tix.n_bases)
+    return {k: (v.numpy() if torch.is_tensor(v) else v)
+            for k, v in prep.items()}
+
+
+def _emulate(lib, host, reverse):
+    """The kernel's grid on the CPU: (chains, flags) as numpy int32."""
+    B, A2, _ = host["anchors"].shape
+    chains = np.full((B, 8, 10), -7, np.int32)     # every word is written
+    flags = np.full((B, 3), -7, np.int32)
+    arrs = [np.ascontiguousarray(host[k], dtype=np.int32) for k in (
+        "scal", "chains", "anchors", "schash", "codes_pk", "rk_vals",
+        "rk_pos", "ref_words", "ref_off", "ref_len")]
+    rc = lib.rescore_emulate(
+        *[a.ctypes.data for a in arrs], chains.ctypes.data, flags.ctypes.data,
+        B, A2, host["codes_pk"].shape[1], host["rk_vals"].shape[2],
+        host["ref_words"].shape[0] // 128, host["ref_off"].shape[0],
+        host["n_bases"], host["last_char"], int(reverse))
+    assert rc == 0, lib.rescore_emu_error().decode()
+    return chains, flags
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["lanes_up",
+                                                         "lanes_down"])
+@pytest.mark.parametrize("case", ["mid_reference", "tail_of_reference",
+                                  "m3_width_512"])
+def test_warp_kernel_source_matches_plain(batches, rescore_emu, case,
+                                          reverse):
+    """kernels/rescore.cu itself (one warp per read, state in shared memory)
+    on every row of the captured batch, rows without chains included, run on
+    the CPU with its lanes taken in one order and then the other between
+    collectives: chains and all three flag columns equal the plain
+    version's. A missing __syncwarp shows in one of the two orders."""
+    from desamba_tpu_torch.engine.device import rescore_ref
+
+    idx, inp = batches[case]
+    host = _prep(idx, inp)
+    exp_c, exp_f = rescore_ref.rescore_rows(host)
+    got_c, got_f = _emulate(rescore_emu, host, reverse)
+    rows = np.flatnonzero(host["scal"][:, 0] > 0)
+    assert len(rows) >= 1, "the batch should hold rows with chains"
+    if case != "m3_width_512":
+        assert len(rows) < len(host["scal"]), "and rows without"
+    np.testing.assert_array_equal(got_c, exp_c, err_msg=f"{case} chains")
+    np.testing.assert_array_equal(got_f, exp_f, err_msg=f"{case} flags")
+    assert exp_f[rows, 2].min() > 0, "a row with chains took no step"
+
+
+def test_kernel_shared_memory_fits_and_is_sized_alike(batches, rescore_emu):
+    """smem_bytes (the wrapper's) equals the kernel's own count at both
+    anchor widths and at the widest 9-mer table the fixtures make, and stays
+    within a block's 227 KB; a shape whose block would not fit raises before
+    anything is launched."""
+    from desamba_tpu_torch.engine.device import rescore_pl as trp
+
+    widest = max(inp[5].shape[1] // 2 for _idx, inp in batches.values())
+    for A2 in (64, 512):
+        for K in (1024, widest, 11264):
+            n = trp.smem_bytes(A2, K)
+            assert n == rescore_emu.rescore_smem_bytes(A2, K), (A2, K)
+            assert n % 16 == 0 and n <= 227 * 1024, (A2, K, n)
+    assert trp.smem_bytes(512, 11264) > 48 * 1024   # needs the opt-in
+    with pytest.raises(ValueError, match="shared memory"):
+        trp.smem_bytes(16384, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        trp.smem_bytes(64, 1 << 20)
+    idx, inp = batches["mid_reference"]
+    host = _prep(idx, inp)
+    prep = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+            for k, v in host.items()}
+    wide = dict(prep, anchors=torch.zeros((2, 16384, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="shared memory"):
+        trp.rescore_cuda(wide)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trp.rescore_cuda(prep)
