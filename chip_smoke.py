@@ -17,35 +17,45 @@ and a C compiler. Phases:
    byte-equal to the gold oracle's (ClassifyEngine) on the same reads,
    with the slow ladders and the M3 path both taken; the kernels' launch
    counts are zeroed just before and read just after this run;
-4. K1: the rescore kernel's wrapper on the inputs the main path gave it
+4. long reads: a new DeviceClassifier over one batch of 64 reads, the
+   first 62 of phase 3's and two of at least 250 kb (a chimera of whole
+   references end to end, and a span of one reference inside random
+   sequence), so that K1's 9-mer tables are too wide for the least fence
+   stride; its SAM byte-equal to gold's, K1 launched in that run (counts
+   zeroed just before, read just after) and, as in phase 5, bit-equal to
+   its plain version on every row of each of its batches, with the table
+   width, the fence stride, the shared memory a block and the rows of long
+   reads with chains printed;
+5. K1: the rescore kernel's wrapper on the inputs the main path gave it
    (the first main batch and the first M3 sub-batch), bit-equal
    (tolerance 0) to its plain version on every row (chains and the three
    flag columns), both timed; per width, the rows with chains, the steps
    in all and in the longest walk, the shared memory a block and
    ``ptxas``'s registers, stack and spills;
-5. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
+6. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
    at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
    launches the compare-count kernel (K3) on a sorted table with one lane
    per block and on an unsorted one with 8 lanes per block; its counts are
    zeroed just before and read just after; each result bit-equal to the
    plain version and to ``torch.searchsorted`` over the sorted table, and
    kernel, plain version and searchsorted timed by CUDA events;
-6. primitive benches: the entry point ``desamba_tpu_torch.tools.micro`` at
+7. primitive benches: the entry point ``desamba_tpu_torch.tools.micro`` at
    the TPU tools' full shapes and trip counts, which launches each of the 17
-   kernels of its 16 sites (K4, K6, K5: gathers, dynamic-offset row loads
-   over the whole card, a block, an asynchronous copy, a launch); each output
-   bit-equal to its plain version and, where there is one, to the one index
-   or elementwise PyTorch call with a sum that computes the same function;
-7. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
+   kernels of its 16 sites (K4, K6, K5: gathers, dynamic-offset row loads,
+   asynchronous copies and a scalar loop over the whole card, a block, a
+   launch); each output bit-equal to its plain version and, where there is
+   one, to the one index or elementwise PyTorch call with a sum that
+   computes the same function;
+8. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
    seeded (R, 128) tiles with the edge cases of the CPU test, bit-equal to
    the plain versions;
-8. capability probes: the entry point ``desamba_tpu_torch.tools.caps``
+9. capability probes: the entry point ``desamba_tpu_torch.tools.caps``
    (K7), every probe OK against its numpy expression (it raises otherwise)
    and bit-equal to its plain version.
 
-Phases 6-8 zero their wrappers' launch counts just before the entry point
-runs and read them just after, as phase 5 does. Their kernels are timed in
-a replayed CUDA graph (``micro.graph_ms``; phase 6 reports the bench's own
+Phases 7-9 zero their wrappers' launch counts just before the entry point
+runs and read them just after, as phase 6 does. Their kernels are timed in
+a replayed CUDA graph (``micro.graph_ms``; phase 7 reports the bench's own
 times): most are shorter than the tens of microseconds a Python wrapper
 takes to submit a launch, so events around eager launches would time the
 host. Plain versions and library calls are
@@ -138,6 +148,34 @@ def make_reads(rng, refs, n):
         frag = _mutate(rng, frag, 0.04, 0.03, 0.03)
         reads.append((f"read{i}", ACGT[frag].tobytes().decode()))
     return reads
+
+
+LONG_READ = 250_000   # bases: an ultra-long ONT read
+
+
+def make_long_reads(rng, refs):
+    """Two reads of at least LONG_READ bases with make_reads' errors: a
+    chimera of whole references end to end (each drawn by length, either
+    strand), and a 2-5 kb span of one reference inside random sequence
+    absent from the collection (a provirus in its host's DNA)."""
+    lens = np.array([len(s) for _, s in refs], np.float64)
+    parts, total = [], 0
+    while total < LONG_READ:
+        _, src = refs[int(rng.choice(len(refs), p=lens / lens.sum()))]
+        parts.append(src if rng.random() < 0.5 else (3 - src)[::-1])
+        total += len(src)
+    _, src = refs[int(rng.integers(len(refs)))]
+    ln = min(int(rng.integers(2000, 5001)), len(src))
+    st = int(rng.integers(0, len(src) - ln + 1))
+    host = rng.integers(0, 4, LONG_READ).astype(np.uint8)
+    out = []
+    for name, seq in (("long_chimera", np.concatenate(parts)),
+                      ("long_provirus", np.concatenate(
+                          [host[: LONG_READ // 2], src[st : st + ln],
+                           host[LONG_READ // 2 :]]))):
+        seq = _mutate(rng, seq, 0.04, 0.03, 0.03)
+        out.append((name, ACGT[seq].tobytes().decode()))
+    return out
 
 
 def write_fasta(path, refs):
@@ -326,6 +364,8 @@ def main():
     t0 = time.perf_counter()
     refs = make_collection(rng, args.mbases)
     reads = [Rec(n, s) for n, s in make_reads(rng, refs, args.reads)]
+    long_batch = reads[:62] + [Rec(n, s) for n, s in make_long_reads(
+        np.random.default_rng([args.seed, 1]), refs)]
     n_bases = sum(len(s) for _, s in refs)
     with tempfile.TemporaryDirectory() as tmp:
         fa = os.path.join(tmp, "collection.fa")
@@ -339,101 +379,134 @@ def main():
 
     # ---- 3. end to end ----------------------------------------------------
     opts = Options()
-    dev = DeviceClassifier(idx, opts, "cuda")
-    captured = {}
-    orig = dev._k_rescore
-
-    def capture(inp):
-        captured.setdefault(int(inp.anchors.shape[1]), inp)
-        return orig(inp)
-
-    dev._k_rescore = capture
     kernels = {"rescore": trp.rescore_cuda, "cmpcount": compare_count}
-    for k in kernels.values():
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = list(dev.classify_reads(reads))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.items()}
-    dev._k_rescore = orig
-    got = "".join(format_result(r, idx.ref_name, opts) for r in res)
-    fb = dev.fallback_stats()
-    log(f"end to end: {len(reads)} reads in {wall:.3f} s = "
-        f"{len(reads) / wall:.1f} reads/s on {kind}")
-    log("stage wall s: " + json.dumps(
-        {k: round(v, 3) for k, v in dev.stage_s.items()}))
-    log("fallback: " + json.dumps(fb))
-
-    gold = ClassifyEngine(idx, opts)
-    t0 = time.perf_counter()
-    exp = "".join(format_result(gold.classify_read(r.name, r.seq, r.qual),
-                                idx.ref_name, opts) for r in reads)
-    log(f"gold oracle: {time.perf_counter() - t0:.3f} s on the host")
     failures = []
-    if got != exp:
-        g, e = got.splitlines(), exp.splitlines()
-        diff = [(a, b) for a, b in zip(g, e) if a != b][:5]
-        failures.append(f"SAM differs from gold ({len(g)} vs {len(e)} "
-                        f"lines): {diff}")
-    else:
-        log(f"SAM byte-equal to gold: {len(got.splitlines())} lines")
+
+    def classify(batch, what):
+        """A new DeviceClassifier over ``batch``, the kernels' counts zeroed
+        just before and read just after, its SAM held against gold's.
+        Returns (classifier, first rescore input per anchor width,
+        launches)."""
+        clf = DeviceClassifier(idx, opts, "cuda")
+        captured = {}
+        orig = clf._k_rescore
+
+        def capture(inp):
+            captured.setdefault(int(inp.anchors.shape[1]), inp)
+            return orig(inp)
+
+        clf._k_rescore = capture
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = list(clf.classify_reads(batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        clf._k_rescore = orig
+        got = "".join(format_result(r, idx.ref_name, opts) for r in res)
+        log(f"{what}: {len(batch)} reads in {wall:.3f} s = "
+            f"{len(batch) / wall:.1f} reads/s on {kind}")
+        log("stage wall s: " + json.dumps(
+            {k: round(v, 3) for k, v in clf.stage_s.items()}))
+        log("fallback: " + json.dumps(clf.fallback_stats()))
+        gold = ClassifyEngine(idx, opts)
+        t0 = time.perf_counter()
+        exp = "".join(format_result(gold.classify_read(r.name, r.seq, r.qual),
+                                    idx.ref_name, opts) for r in batch)
+        log(f"gold oracle: {time.perf_counter() - t0:.3f} s on the host")
+        if got != exp:
+            g, e = got.splitlines(), exp.splitlines()
+            diff = [(a, b) for a, b in zip(g, e) if a != b][:5]
+            failures.append(f"{what}: SAM differs from gold ({len(g)} vs "
+                            f"{len(e)} lines): {diff}")
+        else:
+            log(f"{what}: SAM byte-equal to gold: {len(got.splitlines())} "
+                f"lines")
+        if launches["rescore"] <= 0:
+            failures.append(f"kernel rescore was not launched by the {what} "
+                            f"run")
+        return clf, captured, launches
+
+    dev, captured, launches = classify(reads, "end to end")
+    fb = dev.fallback_stats()
     if fb["slow_path_reads"] <= 0 or fb["m3_path_reads"] <= 0:
         failures.append("the slow path or the M3 path was not taken")
-    if launches["rescore"] <= 0:
-        failures.append("kernel rescore was not launched by the main path")
 
-    # ---- 4. kernels against their plain versions ----------------------------
-    dix = dev.dix
-    recs = []
-    for width, inp in sorted(captured.items()):
-        prep = trp.prepare(inp, dev.ref_words, dix.ref_off, dix.ref_len_arr,
-                           dix.n_bases)
-        rows = np.flatnonzero(inp.n_chains.cpu().numpy() > 0)
-        ch_k, fl_k = trp.rescore_cuda(prep)
-        torch.cuda.synchronize()
-        host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
-                for k, v in prep.items()}
-        touched = Touched(host["ref_words"])
-        t0 = time.perf_counter()
-        ch_p, fl_p = trp.rescore_plain(dict(host, ref_words=touched), rows)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        ms = cuda_ms(lambda: trp.rescore_cuda(prep), 5)
-        # operations: one per step of the walk and the DP (flags column 2),
-        # a lower bound
-        step_col = fl_k[:, 2].to(torch.int64)
-        steps, max_steps = int(step_col.sum()), int(step_col.max())
-        nbytes = rescore_bytes(host, rows, touched.spans)
-        bnd = bound(nbytes, steps)
-        # every row: those with chains, and the rows without, which the
-        # kernel copies through with zero flags
-        ck = ch_k.cpu().numpy().astype(np.int64)
-        fk = fl_k.cpu().numpy().astype(np.int64)
-        cp = ch_p.numpy().astype(np.int64)
-        fp = fl_p.numpy().astype(np.int64)
-        err = int(max(np.abs(ck - cp).max(initial=0),
-                      np.abs(fk - fp).max(initial=0)))
-        n_fb = int(fk[:, 0].sum())
-        smem = trp.smem_bytes(width, prep["rk_vals"].shape[2])
-        log(f"rescore width {width}: batch of {prep['scal'].shape[0]} rows, "
-            f"{len(rows)} with chains: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.1f} ms on those rows, bound {bnd[0]:.6f} ms "
-            f"({bnd[1]}; {nbytes} bytes, {span_words(touched.spans)} "
-            f"reference words); steps {steps} in all, {max_steps} in the "
-            f"longest walk; shared memory {smem} bytes a block; ptxas "
-            f"{k1_ptxas}; max_abs_err {err} over all "
-            f"rows, {n_fb} rows fell back")
-        if len(rows) == 0:
-            failures.append(f"no rescore rows checked at width {width}")
-        if err != 0:
-            failures.append(f"rescore kernel differs from its plain version "
-                            f"at width {width}: max_abs_err {err}")
-        if ms < bnd[0]:
-            failures.append(f"rescore at width {width} beat its bound: "
-                            f"{ms} < {bnd[0]} ms")
-        recs.append(dict(width=width, ms=ms, plain_ms=plain_ms, err=err,
-                         bound=bnd))
+    def check_k1(what, clf, captured):
+        """K1 on each captured batch of ``clf``'s run against its plain
+        version (every row), timed, with its bound; one record a width."""
+        dix, recs = clf.dix, []
+        for width, inp in sorted(captured.items()):
+            prep = trp.prepare(inp, clf.ref_words, dix.ref_off,
+                               dix.ref_len_arr, dix.n_bases)
+            rows = np.flatnonzero(inp.n_chains.cpu().numpy() > 0)
+            ch_k, fl_k = trp.rescore_cuda(prep)
+            torch.cuda.synchronize()
+            host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                    for k, v in prep.items()}
+            touched = Touched(host["ref_words"])
+            t0 = time.perf_counter()
+            ch_p, fl_p = trp.rescore_plain(dict(host, ref_words=touched), rows)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ms = cuda_ms(lambda: trp.rescore_cuda(prep), 5)
+            # operations: one per step of the walk and the DP (flags column 2),
+            # a lower bound
+            step_col = fl_k[:, 2].to(torch.int64)
+            steps, max_steps = int(step_col.sum()), int(step_col.max())
+            nbytes = rescore_bytes(host, rows, touched.spans)
+            bnd = bound(nbytes, steps)
+            # every row: those with chains, and the rows without, which the
+            # kernel copies through with zero flags
+            ck = ch_k.cpu().numpy().astype(np.int64)
+            fk = fl_k.cpu().numpy().astype(np.int64)
+            cp = ch_p.numpy().astype(np.int64)
+            fp = fl_p.numpy().astype(np.int64)
+            err = int(max(np.abs(ck - cp).max(initial=0),
+                          np.abs(fk - fp).max(initial=0)))
+            n_fb = int(fk[:, 0].sum())
+            K = prep["rk_vals"].shape[2]
+            smem, stride = trp.smem_bytes(width, K), trp.fence_stride(width, K)
+            long_rows = rows[host["scal"][rows, 2] >= LONG_READ]
+            log(f"{what}: rescore width {width}: batch of "
+                f"{prep['scal'].shape[0]} rows, {len(rows)} with chains "
+                f"({len(long_rows)} of them reads of {LONG_READ} bases or "
+                f"more): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.1f} ms on those rows, bound {bnd[0]:.6f} ms "
+                f"({bnd[1]}; {nbytes} bytes, {span_words(touched.spans)} "
+                f"reference words); steps {steps} in all, {max_steps} in the "
+                f"longest walk; table width K {K}, fence stride {stride}, "
+                f"shared memory {smem} bytes a block; ptxas "
+                f"{k1_ptxas}; max_abs_err {err} over all "
+                f"rows, {n_fb} rows fell back")
+            if len(rows) == 0:
+                failures.append(f"{what}: no rescore rows checked at width "
+                                f"{width}")
+            if err != 0:
+                failures.append(f"{what}: rescore kernel differs from its "
+                                f"plain version at width {width}: "
+                                f"max_abs_err {err}")
+            if ms < bnd[0]:
+                failures.append(f"{what}: rescore at width {width} beat its "
+                                f"bound: {ms} < {bnd[0]} ms")
+            recs.append(dict(width=width, ms=ms, plain_ms=plain_ms,
+                             err=err, bound=bnd, K=K, stride=stride))
+        return recs
+
+    # ---- 4. long reads ------------------------------------------------------
+    long_clf, long_captured, long_launches = classify(long_batch,
+                                                      "long reads")
+    log("long reads launches: " + json.dumps(long_launches))
+    long_recs = check_k1("long reads", long_clf, long_captured)
+    if not long_recs or min(r["K"] for r in long_recs) < LONG_READ:
+        failures.append("long reads: no rescore batch at a long read's width")
+    if any(r["stride"] <= trp.FENCE for r in long_recs):
+        failures.append("long reads: a batch kept the least fence stride")
+    del long_clf, long_captured
+
+    # ---- 5. K1 on the main path's batches -----------------------------------
+    recs = check_k1("main path", dev, captured)
     if 512 not in captured:
         failures.append("no M3 rescore sub-batch ran")
     main = next((r for r in recs if r["width"] == 64), None)
@@ -446,12 +519,12 @@ def main():
             "source": "desamba_tpu_torch/kernels/rescore.cu",
             "replaces": "desamba_tpu/engine/device/rescore_pl.py:1101",
             "launches": launches["rescore"],
-            "max_abs_err": max(r["err"] for r in recs),
+            "max_abs_err": max(r["err"] for r in recs + long_recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
             "library_ms": None})
 
-    # ---- 5. gather bench: the compare-count kernel (K3) ---------------------
+    # ---- 6. gather bench: the compare-count kernel (K3) ---------------------
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -499,7 +572,7 @@ def main():
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
 
-    # ---- 6. primitive benches (K4, K6, K5) ----------------------------------
+    # ---- 7. primitive benches (K4, K6, K5) ----------------------------------
     dev0 = torch.device("cuda")
 
     def max_err(a, b):
@@ -559,7 +632,7 @@ def main():
     del mres
     torch.cuda.empty_cache()
 
-    # ---- 7. tile helpers (K2) -----------------------------------------------
+    # ---- 8. tile helpers (K2) -----------------------------------------------
     for f in plops.HARNESS.values():
         f.launches = 0
     cases = plops.run_harness(dev0, args.seed)
@@ -590,7 +663,7 @@ def main():
                  "tests/test_plops.py:16", sum(by_body.values()), err, ms,
                  plain_ms, None, nbytes, ops)
 
-    # ---- 8. capability probes (K7) ------------------------------------------
+    # ---- 9. capability probes (K7) ------------------------------------------
     for f in caps.WRAPPERS:
         f.launches = 0
     cres = caps.main(["--seed", str(args.seed)])

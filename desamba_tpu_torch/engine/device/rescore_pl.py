@@ -20,7 +20,7 @@ INT32_MAX = (1 << 31) - 1
 LANES = 128
 HASH_CAP = 2 * C_CAP          # combine-hash entries per read
 WARPS_PER_BLOCK = 4           # reads per block of the kernel (one warp each)
-FENCE = 32                    # fence stride of the sorted 9-mer tables
+FENCE = 32                    # least fence stride of the sorted 9-mer tables
 SMEM_MAX = 232448             # shared memory one block may use (227 KB)
 
 
@@ -92,19 +92,40 @@ def rescore_plain(prep, rows=None):
     return torch.from_numpy(chains), torch.from_numpy(flags)
 
 
+def _region_words(A2: int, K: int, stride: int) -> int:
+    """One warp's shared-memory words at fence stride ``stride``: its read's
+    chains, combine-hash entries, sms slots, window, A2 anchor records and
+    the fence tables of both directions (every stride-th of K sorted
+    values), rounded up to 4 words (``region_words`` in
+    ``kernels/rescore.cu``)."""
+    words = (C_CAP * CF_N + 10 * HASH_CAP + 4 * S_CAP + LANES + 4 * A2
+             + 2 * -(-K // stride))
+    return -(-words // 4) * 4
+
+
+def fence_stride(A2: int, K: int) -> int:
+    """The kernel's fence stride for a batch: FENCE * 2^j for the least j
+    whose block of WARPS_PER_BLOCK regions fits the card's 227 KB, or the
+    stride that leaves one fence a direction if none does
+    (``fence_shift`` in ``kernels/rescore.cu``). FENCE up to K ~ 214,000
+    at 64 anchors and ~185,000 at 512; longer reads double it."""
+    stride = FENCE
+    while (stride < K and WARPS_PER_BLOCK * 4 * _region_words(A2, K, stride)
+           > SMEM_MAX):
+        stride *= 2
+    return stride
+
+
 def smem_bytes(A2: int, K: int) -> int:
     """Dynamic shared memory of one block of the kernel: WARPS_PER_BLOCK
-    warps, each with its read's chains, combine-hash entries, sms slots,
-    window, A2 anchor records and the fence tables of both directions (every
-    FENCE-th of K sorted values), rounded to 16 bytes (``warp_words`` in
-    ``kernels/rescore.cu``). Raises ValueError on a shape whose block would
-    not fit the card's 227 KB."""
+    warps' regions at the batch's ``fence_stride`` (the kernel's
+    ``rescore_smem_bytes``). Raises ValueError on a shape whose block would
+    not fit the card's 227 KB even with one fence a direction (too many
+    anchors)."""
     if A2 <= 0 or K <= 0:
         raise ValueError(f"rescore kernel: anchors {A2} and table width {K} "
                          f"must be positive")
-    words = (C_CAP * CF_N + 10 * HASH_CAP + 4 * S_CAP + LANES + 4 * A2
-             + 2 * -(-K // FENCE))
-    nbytes = WARPS_PER_BLOCK * 4 * (-(-words // 4) * 4)
+    nbytes = WARPS_PER_BLOCK * 4 * _region_words(A2, K, fence_stride(A2, K))
     if nbytes > SMEM_MAX:
         raise ValueError(f"rescore kernel: {A2} anchors and a {K}-wide 9-mer "
                          f"table need {nbytes} bytes of shared memory per "

@@ -117,11 +117,11 @@ def micro_lib():
         "micro_rowgather": "ppp" + "iii" + "p",
         "micro_egather": "ppp" + "iiii" + "p",
         "micro_dynslice": "ppp" + "i" * 7 + "p",
-        "micro_dynslice_blocks": "i",
+        "micro_resident_blocks": "i",
         "micro_colgather": "ppp" + "iiii" + "p",
         "micro_gridstep": "pp" + "ii" + "p",
-        "micro_dmaloop": "ppp" + "iii" + "p",
-        "micro_scalarloop": "pp" + "i" + "p",
+        "micro_dmaloop": "ppp" + "i" * 5 + "p",
+        "micro_scalarloop": "ppp" + "iii" + "p",
         "micro_oneprog": "pp" + "i" + "p",
         "micro_vecwork": "pp" + "ii" + "p",
     })

@@ -13,7 +13,7 @@
 //
 // - dynslice_kernel: the trips are split over a grid that fills the card,
 //   each block a contiguous range of them (the wrapper's split,
-//   tools/micro.py dynslice_split). A warp loads each of its trips' rows
+//   tools/micro.py grid_split). A warp loads each of its trips' rows
 //   coalesced, 16 bytes a lane of a 512-byte row, from a table that stays
 //   in device memory (2 MB: L2-resident, too large for shared memory, where
 //   the TPU held it in VMEM), and sums them in registers; the block's sums
@@ -32,19 +32,34 @@
 // - gridstep_kernel: one block per TPU program, so its time over the grid
 //   is the card's cost of scheduling a block; with one block it is the
 //   empty kernel, the launch floor.
-// - dmaloop_kernel: the TPU's serial make_async_copy start/wait of 4 KB is
-//   cp.async here, 16 bytes a thread over 256 threads
-//   (__pipeline_memcpy_async, commit, wait for all), started and waited
-//   each trip, then summed from shared memory after a barrier. Not TMA: the
-//   simple form is enough to price a serial asynchronous copy.
-// - scalarloop_kernel: one thread. oneprog_kernel: one block of 1,024
-//   threads, each iterating the dependent multiply-add chain.
-//   vecwork_kernel: a grid over all SMs, the int32 elementwise rate.
+// - dmaloop_kernel: the TPU's make_async_copy of a 4-KB slice is cp.async
+//   here, 16 bytes a thread over 256 threads (__pipeline_memcpy_async), and
+//   every trip still copies its whole slice into shared memory. The trips
+//   are split over a grid that fills the card (tools/micro.py
+//   grid_split), each block a contiguous range of them, and a block keeps
+//   DMA_STAGES - 1 copies in flight in a ring of DMA_STAGES slots: one
+//   barrier a trip, after which the next copy goes into the slot every
+//   thread has finished reading, where the one-block loop started, waited
+//   and summed one copy at a time behind two barriers. Block sums go into
+//   the zeroed output by integer atomicAdd, exact in any order. Not TMA:
+//   cp.async's ring is enough to keep the copies in flight. Its 4-KB slices
+//   come from a 16-MB table (8 MB of it addressed), so they are served
+//   from L2.
+// - scalarloop_kernel: the trips are split over a grid that fills the card
+//   (grid_split), each thread taking every SL_THREADS-th trip of its
+//   block's range, and every trip is computed (the offsets are not closed
+//   in a formula, as the tool counts one add a trip). Warp sums by
+//   __reduce_add_sync, the block's into a zeroed word by integer
+//   atomicAdd; the last block to finish (a counter beside it) writes the
+//   total to the 1,024 outputs.
+// - oneprog_kernel: one block of 1,024 threads, each iterating the
+//   dependent multiply-add chain. vecwork_kernel: a grid over all SMs, the
+//   int32 elementwise rate.
 //
-// What bounds them: the one-block loops, latency (dependent or serial work
-// by design); dynslice, L2 reads; the gathers and vecwork, integer
-// operations and L2 or shared-memory loads. None is near the card's memory
-// rate.
+// What bounds them: the one-block loop (oneprog), latency (dependent work
+// by design); dynslice and dmaloop, L2 reads; scalarloop, the launch and
+// its atomics; the gathers and vecwork, integer operations and L2 or
+// shared-memory loads. None is near the card's memory rate.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -183,55 +198,90 @@ __global__ void gridstep_kernel(const int4* __restrict__ x,
   out[i] = v;
 }
 
-// out[r, :] = sum_{i < n} hbm[off_i + r, :] for r < ROWS (8 or 1),
-// off_i = ((s + 37 i) * 8) & mask: each trip copies the 8-row slice (4 KB)
-// into shared memory with cp.async, waits for it, and adds from there.
-// One block of 256 threads.
+// out[r, :] += sum_{i in this block's trips} hbm[off_i + r, :] for r < ROWS
+// (8 or 1), off_i = ((s + 37 i) * 8) & mask; block b takes the trips
+// [b * chunk, min(n, (b + 1) * chunk)), and out starts at 0. Trip k of the
+// block copies its 8-row slice (4 KB) into ring slot k % DMA_STAGES with
+// cp.async, DMA_STAGES - 1 trips ahead of the one being summed. 256
+// threads, 16 bytes each a copy.
+#define DMA_STAGES 4
 template <int ROWS>
-__global__ void dmaloop_kernel(const int* __restrict__ hbm,
-                               const int* __restrict__ s_ptr,
-                               int* __restrict__ out, int n, int mask) {
-  __shared__ __align__(16) int scratch[8 * RW];
+__global__ void __launch_bounds__(256)
+    dmaloop_kernel(const int* __restrict__ hbm, const int* __restrict__ s_ptr,
+                   int* __restrict__ out, int n, int chunk, int mask) {
+  __shared__ __align__(16) int ring[DMA_STAGES][8 * RW];
   const int t = threadIdx.x, l = t & (RW - 1), half = t >> 7;
   const unsigned s = (unsigned)*s_ptr;
-  unsigned acc[4] = {0, 0, 0, 0};
-  for (unsigned i = 0; i < (unsigned)n; ++i) {
-    const unsigned off = ((s + i * 37u) * 8u) & (unsigned)mask;
-    __pipeline_memcpy_async(scratch + t * 4, hbm + (size_t)off * RW + t * 4,
-                            16);
+  const unsigned first = blockIdx.x * (unsigned)chunk;
+  const int cnt = (int)(min((unsigned)n, first + (unsigned)chunk) - first);
+  // one commit group a trip, empty past the range, so that group k is
+  // always trip k
+  auto fetch = [&](int k) {
+    if (k < cnt) {
+      const unsigned off = ((s + (first + k) * 37u) * 8u) & (unsigned)mask;
+      __pipeline_memcpy_async(ring[k % DMA_STAGES] + t * 4,
+                              hbm + (size_t)off * RW + t * 4, 16);
+    }
     __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();                   // every thread's 16 bytes have landed
+  };
+#pragma unroll
+  for (int k = 0; k < DMA_STAGES - 1; ++k) fetch(k);
+  unsigned acc[4] = {0, 0, 0, 0};
+  for (int k = 0; k < cnt; ++k) {
+    __pipeline_wait_prior(DMA_STAGES - 2);   // this thread's trip k landed
+    __syncthreads();   // every thread's; and slot (k - 1) % DMA_STAGES read
+    fetch(k + DMA_STAGES - 1);               // into that slot
+    const int* slot = ring[k % DMA_STAGES];
     if (ROWS == 8) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        acc[k] += (unsigned)scratch[(half * 4 + k) * RW + l];
+      for (int j = 0; j < 4; ++j)
+        acc[j] += (unsigned)slot[(half * 4 + j) * RW + l];
     } else if (half == 0) {
-      acc[0] += (unsigned)scratch[l];
+      acc[0] += (unsigned)slot[l];
     }
-    __syncthreads();                   // before the next copy overwrites it
   }
   if (ROWS == 8) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) out[(half * 4 + k) * RW + l] = (int)acc[k];
+    for (int j = 0; j < 4; ++j)
+      atomicAdd((unsigned*)out + (half * 4 + j) * RW + l, acc[j]);
   } else if (half == 0) {
-    out[l] = (int)acc[0];
+    atomicAdd((unsigned*)out + l, acc[0]);
   }
 }
 
-// out[:] = sum_{i < n} ((s + 7 i) & 1023), computed by one thread and
-// written to all 1,024 words by the block.
-__global__ void scalarloop_kernel(const int* __restrict__ s_ptr,
-                                  int* __restrict__ out, int n) {
-  __shared__ unsigned tot;
+// out[:] = sum_{i < n} ((s + 7 i) & 1023) as wrapping int32, in all 1,024
+// words. Block b sums the trips [b * chunk, min(n, (b + 1) * chunk)), thread
+// t of it every SL_THREADS-th from the range's start + t, into acc[0]
+// (zeroed); acc[1] (zeroed) counts the blocks done, and the last one writes
+// the total.
+#define SL_THREADS 256
+__global__ void __launch_bounds__(SL_THREADS)
+    scalarloop_kernel(const int* __restrict__ s_ptr, unsigned* acc,
+                      int* __restrict__ out, int n, int chunk) {
+  __shared__ unsigned part[SL_THREADS / 32];
+  __shared__ unsigned total;
+  __shared__ bool last;
+  const unsigned s = (unsigned)*s_ptr;
+  const unsigned first = blockIdx.x * (unsigned)chunk;
+  const unsigned end = min((unsigned)n, first + (unsigned)chunk);
+  unsigned sum = 0;
+  for (unsigned i = first + threadIdx.x; i < end; i += SL_THREADS)
+    sum += (s + 7u * i) & 1023u;
+  sum = __reduce_add_sync(0xFFFFFFFFu, sum);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = sum;
+  __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned s = (unsigned)*s_ptr;
-    unsigned acc = 0;
-    for (unsigned i = 0; i < (unsigned)n; ++i) acc += (s + 7u * i) & 1023u;
-    tot = acc;
+    unsigned b = 0;
+#pragma unroll
+    for (int w = 0; w < SL_THREADS / 32; ++w) b += part[w];
+    atomicAdd(acc, b);
+    __threadfence();              // the sum is in before the block counts
+    last = atomicAdd(acc + 1, 1u) == gridDim.x - 1;
+    if (last) total = atomicAdd(acc, 0u);   // every block's sum is in
   }
   __syncthreads();
-  out[threadIdx.x] = (int)tot;
+  if (last)
+    for (int w = threadIdx.x; w < 8 * RW; w += SL_THREADS) out[w] = (int)total;
 }
 
 // out = x + acc_n, acc_0 = 0, acc_{i+1} = acc_i * 3 + i: every one of the
@@ -281,20 +331,47 @@ extern "C" int micro_egather(const int* tab, const int* idx, int* out, int eb,
   return (int)cudaGetLastError();
 }
 
-// the most dynslice blocks the card holds at once (blocks per SM at full
-// occupancy x SMs), for the wrapper's split; rows_out 8 or 1
-extern "C" int micro_dynslice_blocks(int rows_out) {
+// the most blocks of one grid-split kernel the card holds at once (blocks
+// per SM at full occupancy x SMs), for the wrapper's split: kernel 0
+// dynslice<8>, 1 dynslice<1>, 2 dmaloop<8>, 3 dmaloop<1>, 4 scalarloop;
+// -(CUDA error) on failure
+extern "C" int micro_resident_blocks(int kernel) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = rows_out == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            &per_sm, dynslice_kernel<8>, DS_WARPS * 32, 0)
-        : rows_out == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                              &per_sm, dynslice_kernel<1>, DS_WARPS * 32, 0)
-                        : cudaErrorInvalidValue;
+  if (e == cudaSuccess) switch (kernel) {
+      case 0:
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, dynslice_kernel<8>, DS_WARPS * 32, 0);
+        break;
+      case 1:
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, dynslice_kernel<1>, DS_WARPS * 32, 0);
+        break;
+      case 2:
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, dmaloop_kernel<8>, 256, 0);
+        break;
+      case 3:
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, dmaloop_kernel<1>, 256, 0);
+        break;
+      case 4:
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, scalarloop_kernel, SL_THREADS, 0);
+        break;
+      default:
+        e = cudaErrorInvalidValue;
+    }
   return e == cudaSuccess ? per_sm * sms : -(int)e;
+}
+
+// a grid of `blocks` blocks of `chunk` trips covers n trips, the last block
+// holding at least one
+static inline bool split_ok(int n, int blocks, int chunk) {
+  return n > 0 && blocks > 0 && chunk > 0 &&
+         (long long)blocks * chunk >= n && (long long)(blocks - 1) * chunk < n;
 }
 
 // tab (rows, 128), 16-byte aligned, with every off_i + rows_out <= rows
@@ -303,9 +380,7 @@ extern "C" int micro_dynslice_blocks(int rows_out) {
 extern "C" int micro_dynslice(const int* tab, const int* s, int* out, int n,
                               int blocks, int chunk, int mul, int scale,
                               int mask, int rows_out, void* stream) {
-  if (n <= 0 || blocks <= 0 || chunk <= 0 ||
-      (long long)blocks * chunk < n || (long long)(blocks - 1) * chunk >= n)
-    return (int)cudaErrorInvalidValue;
+  if (!split_ok(n, blocks, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int4* t4 = (const int4*)tab;
   if (rows_out == 8)
@@ -346,24 +421,27 @@ extern "C" int micro_gridstep(const int* x, int* out, int nprog, int base,
 }
 
 // hbm (rows, 128) with mask + 8 < rows, 16-byte aligned; s (1,);
-// out (rows_out, 128), rows_out 8 or 1
+// out (rows_out, 128) zeroed, rows_out 8 or 1; the split as for dynslice
 extern "C" int micro_dmaloop(const int* hbm, const int* s, int* out, int n,
-                             int mask, int rows_out, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+                             int blocks, int chunk, int mask, int rows_out,
+                             void* stream) {
+  if (!split_ok(n, blocks, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (rows_out == 8)
-    dmaloop_kernel<8><<<1, 256, 0, st>>>(hbm, s, out, n, mask);
+    dmaloop_kernel<8><<<blocks, 256, 0, st>>>(hbm, s, out, n, chunk, mask);
   else if (rows_out == 1)
-    dmaloop_kernel<1><<<1, 256, 0, st>>>(hbm, s, out, n, mask);
+    dmaloop_kernel<1><<<blocks, 256, 0, st>>>(hbm, s, out, n, chunk, mask);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// s (1,), out (8, 128)
-extern "C" int micro_scalarloop(const int* s, int* out, int n, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  scalarloop_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(s, out, n);
+// s (1,), acc (2,) zeroed, out (8, 128); the split as for dynslice
+extern "C" int micro_scalarloop(const int* s, int* acc, int* out, int n,
+                                int blocks, int chunk, void* stream) {
+  if (!split_ok(n, blocks, chunk)) return (int)cudaErrorInvalidValue;
+  scalarloop_kernel<<<blocks, SL_THREADS, 0, (cudaStream_t)stream>>>(
+      s, (unsigned*)acc, out, n, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -21,15 +21,16 @@
 // - sdp_match: 32 probe positions (every 4th 9-mer) at a time, one per
 //   lane. Each lane builds its 9-mer from the window in shared memory and
 //   looks it up in the read's value-sorted table: a binary search over a
-//   fence table in shared memory (every FENCE-th value of both direction
-//   tables, built when the read starts), then one over the 32 values of
-//   one 128-byte line in device memory. That is ~5 dependent device loads
-//   on one cache line where a search over the whole table took ~14 on as
-//   many lines; the whole table (4 x read length bytes per direction) would
-//   not fit several warps' shared memory. A lane's hits and their two
-//   match-run lengths are its own work; the candidate and node order the
-//   serial walk defines (probe index, then hit index) is kept by warp
-//   prefix sums of the per-lane counts (__shfl_up_sync).
+//   fence table in shared memory (every stride-th value of both direction
+//   tables, built when the read starts), then one over the values between
+//   two fences in device memory. At the stride FENCE = 32 that is ~5
+//   dependent device loads on one 128-byte line where a search over the
+//   whole table took ~14 on as many lines; the whole table (4 x read length
+//   bytes per direction) would not fit several warps' shared memory. A
+//   lane's hits and their two match-run lengths are its own work; the
+//   candidate and node order the serial walk defines (probe index, then hit
+//   index) is kept by warp prefix sums of the per-lane counts
+//   (__shfl_up_sync).
 // - node_dp: the scan over a node's prior slots is a warp-wide max; the
 //   scan's early stop becomes the highest slot that stops it (a ballot),
 //   and only the slots above it count.
@@ -39,6 +40,19 @@
 // the fence tables. Scalar state that all lanes hold is written by lane 0
 // between __syncwarp()s. Rows without chains copy their chains through,
 // write zero flags and leave at once.
+//
+// Long reads: the fence tables grow with the batch's table width K (half
+// its F+R buffer, the longest read rounded up to 1,024), 2 * K / 32 words a
+// warp at the stride FENCE, so from K ~ 214,000 (A2 = 64) or ~185,000
+// (A2 = 512) four warps' regions would pass a block's 227 KB. The stride is
+// then FENCE * 2^j for the smallest j whose block fits (fence_shift): the
+// fences stay in shared memory, and the search between two fences takes j
+// more dependent device loads, over 2^j lines, for that batch only (j = 1
+// at a 250-kb read, 5 at a 4-Mb read). Keeping the fences in device memory
+// above some width was the other way; it would put the whole search in
+// device memory, ~14 dependent loads on as many lines, for every probe of
+// every read of the batch. Widths up to ~214,000 keep j = 0, so the layout
+// and the search of today's batches do not change.
 //
 // What bounds it: the longest read's serial walk (one dependent step per
 // node, window and anchor), not bytes or operations; the card is far from
@@ -80,7 +94,9 @@ using po::ult;
 #define NEG_INF (-(1 << 30))
 
 #define WARPS 4        // reads (warps) per block
-#define FENCE 32       // fence stride of the sorted 9-mer tables
+#define FENCE_LOG2 5   // FENCE = 32: the least fence stride of the tables
+#define FENCE (1 << FENCE_LOG2)
+#define SMEM_MAX 232448  // dynamic shared memory a block may use (227 KB)
 #define FULL 0xFFFFFFFFu
 
 enum { C_REF, C_DIR, C_SUM, C_ANUM, C_TST, C_TED, C_QST, C_QED, C_INDEL,
@@ -106,13 +122,28 @@ struct Params {
 
 // ---- the per-warp shared-memory region, in int32 words ---------------------
 // chw [C_CAP][CF_N] | hashv [10][HASH_CAP] | sms [4][S_CAP] | wj [128] |
-// anc [A2][4] | fence [2][G], G = ceil(K / FENCE); rounded up to 4 words.
-// rescore_pl.smem_bytes computes the same size.
-__host__ __device__ inline int fences(int K) { return (K + FENCE - 1) / FENCE; }
-__host__ __device__ inline int warp_words(int A2, int K) {
+// anc [A2][4] | fence [2][G], G = ceil(K / (FENCE << j)); rounded up to 4
+// words. j = fence_shift(A2, K): the least j whose block fits SMEM_MAX, or
+// the one that leaves a single fence a direction if none does.
+// rescore_pl.smem_bytes and rescore_pl.fence_stride compute the same.
+__host__ __device__ inline int fences(int K, int sh) {
+  const int b = FENCE_LOG2 + sh;
+  return (int)(((long long)K + (1LL << b) - 1) >> b);
+}
+__host__ __device__ inline int region_words(int A2, int K, int sh) {
   int w = C_CAP * CF_N + 10 * HASH_CAP + 4 * S_CAP + 128 + 4 * A2 +
-          2 * fences(K);
+          2 * fences(K, sh);
   return (w + 3) & ~3;
+}
+__host__ __device__ inline int fence_shift(int A2, int K) {
+  int sh = 0;
+  while (fences(K, sh) > 1 &&
+         WARPS * 4LL * region_words(A2, K, sh) > SMEM_MAX)
+    ++sh;
+  return sh;
+}
+__host__ __device__ inline int warp_words(int A2, int K) {
+  return region_words(A2, K, fence_shift(A2, K));
 }
 
 __device__ __forceinline__ int w32(long long x) {
@@ -145,6 +176,7 @@ struct Read {
   const Params* P;
   int lane;
   int n_chains, n_hash, l_read, buf_len, kw, G;
+  int fsh;         // log2 of the fence stride
   const int* sch;
   const unsigned* cpk;
   const int* rkv;
@@ -299,17 +331,17 @@ __device__ void fetch_window(Read& R, int goff, int bug_zero) {
 
 // ---- sdp_match --------------------------------------------------------------
 // First index of vals[0, rkn) (ascending) that is >= pv, or rkn: a search
-// over the fences (fen[g] = vals[FENCE g], g < nfen = ceil(rkn / FENCE)),
-// then one inside the FENCE values that lie between two fences.
-__device__ int lower_bound(const int* vals, const int* fen, int nfen, int rkn,
-                           int pv) {
+// over the fences (fen[g] = vals[g << fsh], g < nfen = ceil(rkn / 2^fsh)),
+// then one inside the values that lie between two fences.
+__device__ int lower_bound(const int* vals, const int* fen, int nfen, int fsh,
+                           int rkn, int pv) {
   int a = 0, b = nfen;
   while (a < b) {
     int m = (a + b) >> 1;
     if (fen[m] < pv) a = m + 1; else b = m;
   }
   if (a == 0) return 0;
-  int lo = FENCE * (a - 1) + 1, hi = min(FENCE * a, rkn);
+  int lo = ((a - 1) << fsh) + 1, hi = min(a << fsh, rkn);
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
     if (vals[mid] < pv) lo = mid + 1; else hi = mid;
@@ -331,7 +363,7 @@ __device__ int sdp_match(Read& R, bool forward, int t_len, int t0j, int q_bg,
   const int* vals = R.rkv + (long long)dslot * R.P->K;
   const int* pos = R.rkp + (long long)dslot * R.P->K;
   const int* fen = R.fence + dslot * R.G;
-  int nfen = min((rkn + FENCE - 1) / FENCE, R.G);
+  int nfen = min((rkn + (1 << R.fsh) - 1) >> R.fsh, R.G);
   bool qf = ule(q_bg, q_ed);
   int total_cand = 0, lead_cnt = 0, n_new = 0;
   bool hits_over = false;
@@ -348,7 +380,7 @@ __device__ int sdp_match(Read& R, bool forward, int t_len, int t0j, int q_bg,
           pv = (pv << 2) |
                (int)((R.wj[(x >> 4) & 127] >> ((x & 15) << 1)) & 3u);
         }
-        lo = lower_bound(vals, fen, nfen, rkn, pv);
+        lo = lower_bound(vals, fen, nfen, R.fsh, rkn, pv);
         while (cnt <= H_CAP && lo + cnt < rkn && vals[lo + cnt] == pv) ++cnt;
         tpos = j - t0j;
       }
@@ -727,7 +759,9 @@ __global__ void __launch_bounds__(WARPS * 32) rescore_kernel(Params P) {
   R.l_read = s[2];
   R.buf_len = s[3];
   R.kw = ((P.nw + 127) / 128) * 128;
-  R.G = fences(P.K);
+  const int sh = fence_shift(P.A2, P.K);
+  R.G = fences(P.K, sh);
+  R.fsh = FENCE_LOG2 + sh;
   R.sch = P.schash + (long long)b * HASH_CAP * 3;
   R.cpk = P.codes_pk + (long long)b * P.nw;
   R.rkv = P.rk_vals + (long long)b * 2 * P.K;
@@ -744,7 +778,7 @@ __global__ void __launch_bounds__(WARPS * 32) rescore_kernel(Params P) {
   const int* anc_in = P.anchors + (long long)b * P.A2 * 4;
   for (int f = lane; f < 4 * P.A2; f += 32) R.anc[f] = anc_in[f];
   for (int g = lane; g < 2 * R.G; g += 32) {
-    int d = g / R.G, k = min(FENCE * (g - d * R.G), P.K - 1);
+    int d = g / R.G, k = min((g - d * R.G) << R.fsh, P.K - 1);
     R.fence[g] = R.rkv[(long long)d * P.K + k];
   }
   for (int f = lane; f < 4 * S_CAP; f += 32) R.sms[f] = 0;
@@ -783,10 +817,14 @@ __global__ void __launch_bounds__(WARPS * 32) rescore_kernel(Params P) {
   }
 }
 
-// Dynamic shared memory of one block (bytes); the wrapper passes its own
-// count, and a launch whose count differs is refused.
+// Dynamic shared memory of one block (bytes) and the fence stride; the
+// wrapper passes its own count, and a launch whose count differs, or whose
+// block would not fit, is refused.
 extern "C" int rescore_smem_bytes(int A2, int K) {
   return WARPS * warp_words(A2, K) * 4;
+}
+extern "C" int rescore_fence_stride(int A2, int K) {
+  return FENCE << fence_shift(A2, K);
 }
 
 #ifdef __CUDACC__
@@ -800,7 +838,8 @@ extern "C" int rescore_launch(
            ref_words, ref_off, ref_len, chains_out, flags,
            B, A2, nw, K, NR, nref, n_bases, last_char};
   if (B <= 0) return 0;
-  if (A2 <= 0 || K <= 0 || NR < 2 || smem_bytes != rescore_smem_bytes(A2, K))
+  if (A2 <= 0 || K <= 0 || NR < 2 || smem_bytes > SMEM_MAX ||
+      smem_bytes != rescore_smem_bytes(A2, K))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       rescore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -8,18 +8,19 @@ Counterpart of ``tools/pallas_micro.py``, ``tools/pallas_micro3.py`` and
 ``micro3``, ``micro2`` (one tool's sites) or ``all`` (default). Each of the
 16 sites is one Pallas kernel of those tools, computed here by a kernel of
 ``kernels/micro.cu``; it prints one line: milliseconds per call and ns per
-unit (a gathered row or element, a loop trip, a block, a copy), or, for
-the dynamic-slice sites, whose trips the kernel spreads over the card, a
+unit (a gathered row or element, a loop trip, a block, a copy; for the
+copy and scalar loops, whose trips the kernel spreads over the card, the
+call's time over its trips), or, for the dynamic-slice sites, a
 throughput (trips and bytes of summed rows per second).
 
   micro    K4.1 row gather, K4.2 element gather, K4.3 dynamic-slice loop,
-           K4.4 grid of 2,048 blocks, K4.5 serial 4-KB copies
+           K4.4 grid of 2,048 blocks, K4.5 loop of 4-KB asynchronous copies
   micro3   K6.0 empty kernel (the launch floor: per launch in a replayed
            CUDA graph, by CUDA events over back-to-back eager launches, and
            host time per launch-and-synchronize), K6.1a/b
            dynamic-slice loops of 8-row and 1-row slices, K6.2 gather from a
            32-row table, K6.3 gather from a 4,096-row table, K6.4 grid of
-           32,768 blocks, K6.5 serial copies
+           32,768 blocks, K6.5 loop of copies
   micro2   K5.a scalar loop, K5.b aligned 8-row slices, K5.b2 single rows,
            K5.c one block iterating a multiply-add chain, K5.d elementwise
            int32 throughput
@@ -63,6 +64,12 @@ FULL = dict(
     LOOPN2=1 << 21, ONEP=1 << 19, VB=512, VPASS=256)             # micro2
 CHUNK_ELEMS = 1 << 24   # elements a plain version gathers per chunk
 DS_MIN_CHUNK = 32       # fewest trips a dynslice block takes
+DMA_MIN_CHUNK = 8       # fewest copies a dmaloop block takes
+SL_MIN_CHUNK = 2048     # fewest trips a scalarloop block takes (8 a thread)
+# kernels of micro.cu whose trips are split over the card
+# (micro_resident_blocks)
+RESIDENT = {"dynslice8": 0, "dynslice1": 1, "dmaloop8": 2, "dmaloop1": 3,
+            "scalarloop": 4}
 
 
 def _check(name, *tensors):
@@ -220,33 +227,34 @@ def _check_loop(name, tab, s, mask, sl, rows_out):
     return cuda
 
 
-def dynslice_split(n, max_blocks):
-    """The kernel's grid for n trips: (blocks, chunk). Block b sums trips
-    [b * chunk, min(n, (b + 1) * chunk)): at most ``max_blocks`` blocks
-    (what the card holds at once) and at least DS_MIN_CHUNK trips each, so
-    that a short loop does not pay one block's atomics per trip. (0, 0) for
-    no trips."""
+def grid_split(n, max_blocks, min_chunk):
+    """A grid-split kernel's grid for n trips: (blocks, chunk). Block b
+    takes trips [b * chunk, min(n, (b + 1) * chunk)): at most
+    ``max_blocks`` blocks (what the card holds at once) and at least
+    ``min_chunk`` trips each, so that a short loop does not pay one block's
+    atomics per trip. (0, 0) for no trips."""
     if n <= 0:
         return 0, 0
-    chunk = max(DS_MIN_CHUNK, -(-n // max_blocks))
+    chunk = max(min_chunk, -(-n // max_blocks))
     return -(-n // chunk), chunk
 
 
-_DS_BLOCKS: dict = {}   # (device, rows_out) -> resident dynslice blocks
+_RESIDENT_BLOCKS: dict = {}   # (device, kernel) -> resident blocks
 
 
-def _dynslice_blocks(rows_out):
-    """The most dynslice blocks the current card holds at once."""
+def _resident_blocks(kernel):
+    """The most blocks of ``kernel`` (a key of RESIDENT) the current card
+    holds at once."""
     from ..kernels.build import micro_lib
 
-    key = (torch.cuda.current_device(), rows_out)
-    if key not in _DS_BLOCKS:
-        nb = micro_lib().micro_dynslice_blocks(rows_out)
+    key = (torch.cuda.current_device(), kernel)
+    if key not in _RESIDENT_BLOCKS:
+        nb = micro_lib().micro_resident_blocks(RESIDENT[kernel])
         if nb <= 0:
-            raise RuntimeError(f"micro_dynslice_blocks failed: CUDA error "
+            raise RuntimeError(f"micro_resident_blocks failed: CUDA error "
                                f"{-nb}")
-        _DS_BLOCKS[key] = nb
-    return _DS_BLOCKS[key]
+        _RESIDENT_BLOCKS[key] = nb
+    return _RESIDENT_BLOCKS[key]
 
 
 def dynslice(tab, s, n, mul, scale, mask, sl, rows_out):
@@ -254,14 +262,15 @@ def dynslice(tab, s, n, mul, scale, mask, sl, rows_out):
     ((s + i * mul) * scale) & mask. ``sl`` is the TPU kernel's slice height
     (8 or 1); the kernel loads only the ``rows_out`` rows that are summed,
     over a grid of blocks that each take a contiguous range of trips
-    (``dynslice_split``) and add their sums into a zeroed output."""
+    (``grid_split``) and add their sums into a zeroed output."""
     if not _check_loop("dynslice", tab, s, mask, sl, rows_out):
         return dynslice_plain(tab, s, n, mul, scale, mask, rows_out)
     tab = tab.contiguous()
     if tab.data_ptr() % 16:
         raise ValueError("dynslice: the table must be 16-byte aligned")
     out = torch.zeros(rows_out, RW, dtype=I32, device=tab.device)
-    blocks, chunk = dynslice_split(n, _dynslice_blocks(rows_out))
+    blocks, chunk = grid_split(n, _resident_blocks(f"dynslice{rows_out}"),
+                               DS_MIN_CHUNK)
     if blocks:
         _launch(dynslice, "micro_dynslice", tab, s, out, n, blocks, chunk,
                 mul, scale, mask, rows_out)
@@ -270,14 +279,22 @@ def dynslice(tab, s, n, mul, scale, mask, sl, rows_out):
 
 def dmaloop(hbm, s, n, rows_out):
     """out[r, :] = sum_{i < n} hbm[off_i + r, :] for r < rows_out (8 or 1),
-    off_i = ((s + 37 i) * 8) & (rows - 9); the kernel copies each 8-row
-    slice into shared memory asynchronously and waits for it."""
+    off_i = ((s + 37 i) * 8) & (rows - 9); the kernel copies each trip's
+    8-row slice into shared memory asynchronously, several copies in
+    flight in each block of a grid over the trips (``grid_split``), and
+    adds the blocks' sums into a zeroed output."""
     mask = hbm.shape[0] - 9
     if not _check_loop("dmaloop", hbm, s, mask, 8, rows_out):
         return dynslice_plain(hbm, s, n, 37, 8, mask, rows_out)
     hbm = hbm.contiguous()
-    out = torch.empty(rows_out, RW, dtype=I32, device=hbm.device)
-    _launch(dmaloop, "micro_dmaloop", hbm, s, out, n, mask, rows_out)
+    if hbm.data_ptr() % 16:
+        raise ValueError("dmaloop: the table must be 16-byte aligned")
+    out = torch.zeros(rows_out, RW, dtype=I32, device=hbm.device)
+    blocks, chunk = grid_split(n, _resident_blocks(f"dmaloop{rows_out}"),
+                               DMA_MIN_CHUNK)
+    if blocks:
+        _launch(dmaloop, "micro_dmaloop", hbm, s, out, n, blocks, chunk, mask,
+                rows_out)
     return out
 
 
@@ -290,13 +307,20 @@ def scalarloop_plain(s, n, chunk_elems=CHUNK_ELEMS):
 
 
 def scalarloop(s, n):
-    """(8, 128) filled with sum_{i < n} ((s + 7 i) & 1023)."""
+    """(8, 128) filled with sum_{i < n} ((s + 7 i) & 1023); the kernel
+    splits the trips over a grid (``grid_split``) and adds the blocks'
+    sums into a zeroed word, which the last block writes out."""
     cuda = _check("scalarloop", s)
     _shape("scalarloop", s, 1)
     if not cuda:
         return scalarloop_plain(s, n)
+    blocks, chunk = grid_split(n, _resident_blocks("scalarloop"),
+                               SL_MIN_CHUNK)
+    if not blocks:
+        return torch.zeros(8, RW, dtype=I32, device=s.device)
+    acc = torch.zeros(2, dtype=I32, device=s.device)
     out = torch.empty(8, RW, dtype=I32, device=s.device)
-    _launch(scalarloop, "micro_scalarloop", s, out, n)
+    _launch(scalarloop, "micro_scalarloop", s, acc, out, n, blocks, chunk)
     return out
 
 
@@ -407,9 +431,11 @@ def sites(x, sizes=None):
     """The 16 sites over inputs ``x``: [dict(key, tool, name, replaces,
     label, unit, units, fn, plain, library, ops, nbytes)]. ``fn`` calls the
     wrapper, ``plain`` its plain version; ``library`` is one index or
-    elementwise PyTorch call with a sum that computes the same function
-    (None where there is none: the trips of K6.2 would need a 16-GB index,
-    and K5.a, K5.c and K5.d are loops of scalar or many-pass work).
+    elementwise PyTorch call with a sum that computes the same function:
+    the plain version in a single chunk (for K5.a, one elementwise
+    expression over every trip index, summed). None where there is none:
+    the trips of K6.2 would need a 16-GB index, K5.c is a recurrence and
+    K5.d many passes.
     ``ops()`` is the least int32 operations the function needs on these
     inputs: one add per summed element, and for K5.a and K5.c one per trip
     (a closed form is not the function's work). ``nbytes()`` is what it
@@ -486,7 +512,7 @@ def sites(x, sizes=None):
         if a.shape[0] == 8 * z["GS"]]
     hbm = x["hbm"]
     loop("K4.5", "micro", "micro_dmaloop", "tools/pallas_micro.py:206",
-         f"serial async copy x{z['DMAN']} (4096 B), 8 rows summed", "copy",
+         f"async copy loop x{z['DMAN']} (4096 B), 8 rows summed", "copy",
          hbm, z["DMAN"], 37, 8, z["HBROWS"] - 9, 8, 8, dma=True)
 
     # -- tools/pallas_micro3.py
@@ -526,14 +552,15 @@ def sites(x, sizes=None):
         lambda: gridstep_plain(xg3, 0), xg3.numel(),
         lambda: 8 * xg3.numel())
     loop("K6.5", "micro3", "micro3_dmaloop", "tools/pallas_micro3.py:217",
-         f"serial async copy x{z['DMAN3']} (4096 B), row 0 summed", "copy",
+         f"async copy loop x{z['DMAN3']} (4096 B), row 0 summed", "copy",
          hbm, z["DMAN3"], 37, 8, z["HBROWS"] - 9, 8, 1, dma=True)
 
     # -- tools/pallas_micro2.py
     n2 = z["LOOPN2"]
     add("K5.a", "micro2", "micro2_scalarloop", "tools/pallas_micro2.py:58",
         f"scalar loop x{n2}", "trip", n2,
-        lambda: scalarloop(s, n2), lambda: scalarloop_plain(s, n2), None,
+        lambda: scalarloop(s, n2), lambda: scalarloop_plain(s, n2),
+        lambda: scalarloop_plain(s, n2, chunk_elems=max(1, n2)),
         n2, lambda: 4 + 4 * 8 * RW)
     loop("K5.b", "micro2", "micro2_dynal", "tools/pallas_micro2.py:81",
          f"aligned dyn-slice loop x{n2 // 4} (8x{RW})", "trip", tab, n2 // 4,

@@ -368,21 +368,16 @@ def _kernel_trips(first, last, warps, rows_out):
 ])
 def test_dynslice_split_sums_to_the_whole_loop(world, n, max_blocks, start):
     """The wrapper's split of the trips over the kernel's grid
-    (``dynslice_split``): every trip in exactly one block and, inside it, in
-    exactly one warp's loop; and the per-block partial sums (the plain
-    version over each block's trips, from its own start) add up to the whole
-    loop's, which is what the blocks' atomicAdds into the zeroed output
-    compute."""
-    import os
-    import re
-
-    src = open(os.path.join(os.path.dirname(micro.__file__), "..", "kernels",
-                            "micro.cu")).read()
-    warps = int(re.search(r"#define DS_WARPS (\d+)", src).group(1))
+    (``grid_split`` at DS_MIN_CHUNK): every trip in exactly one block and,
+    inside it, in exactly one warp's loop; and the per-block partial sums
+    (the plain version over each block's trips, from its own start) add up
+    to the whole loop's, which is what the blocks' atomicAdds into the
+    zeroed output compute."""
+    warps = _micro_define("DS_WARPS")
     x, _ = world
     tab = torch.from_numpy(x["tab"])
     s = torch.tensor([start], dtype=torch.int32)
-    blocks, chunk = micro.dynslice_split(n, max_blocks)
+    blocks, chunk = micro.grid_split(n, max_blocks, micro.DS_MIN_CHUNK)
     assert 1 <= blocks <= max_blocks and chunk >= micro.DS_MIN_CHUNK
     assert (blocks - 1) * chunk < n <= blocks * chunk
     for mul, scale, mask, rows_out in ((7, 1, KR - 9, 8), (7, 1, KR - 9, 1),
@@ -398,7 +393,140 @@ def test_dynslice_split_sums_to_the_whole_loop(world, n, max_blocks, start):
         assert sorted(trips) == list(range(n))
         whole = micro.dynslice_plain(tab, s, n, mul, scale, mask, rows_out)
         assert torch.equal(micro.i32(total), whole)
-    assert micro.dynslice_split(0, max_blocks) == (0, 0)
+    assert micro.grid_split(0, max_blocks,
+                            micro.DS_MIN_CHUNK) == (0, 0)
+
+
+def _micro_define(name):
+    """An integer #define of kernels/micro.cu."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(micro.__file__), "..", "kernels",
+                            "micro.cu")).read()
+    return int(re.search(rf"#define {name} (\d+)", src).group(1))
+
+
+def _check_split(n, max_blocks, min_chunk):
+    """``grid_split``'s (blocks, chunk) and each block's [first, last)."""
+    blocks, chunk = micro.grid_split(n, max_blocks, min_chunk)
+    if n == 0:
+        assert (blocks, chunk) == (0, 0)
+        return []
+    assert 1 <= blocks <= max_blocks and chunk >= min_chunk
+    assert (blocks - 1) * chunk < n <= blocks * chunk
+    return [(b * chunk, min(n, (b + 1) * chunk)) for b in range(blocks)]
+
+
+@pytest.mark.parametrize("n, max_blocks", [
+    (0, 1056),                 # no trips: no block, no launch
+    (1, 1056),                 # one trip
+    (2047, 1056),              # fewer trips than one block's least share
+    (100_001, 7),              # odd n, the chunk does not divide it
+    (1 << 21, 1056),           # the tool's trip count on 132 SMs x 8
+])
+def test_scalarloop_split_sums_to_the_whole_loop(world, n, max_blocks):
+    """scalarloop's grid (``grid_split`` at SL_MIN_CHUNK): every trip in
+    exactly one block and, inside it, in exactly one thread's loop (thread
+    t takes every SL_THREADS-th trip from the range's start + t, restating
+    kernels/micro.cu scalarloop_kernel); and the block sums (the plain
+    version over each block's trips, from its own start) add up to the
+    whole loop's, which is what the blocks' atomicAdds into the zeroed word
+    compute."""
+    x, _ = world
+    threads = _micro_define("SL_THREADS")
+    spans = _check_split(n, max_blocks, micro.SL_MIN_CHUNK)
+    s = int(x["start"][0])
+    seen = np.zeros(n, np.int64)
+    total = 0
+    for first, last in spans:
+        for t in range(threads):
+            seen[first + t:last:threads] += 1
+        s_b = torch.tensor([s + 7 * first], dtype=torch.int64)
+        total += int(micro.scalarloop_plain(micro.i32(s_b),
+                                            last - first)[0, 0])
+    assert (seen == 1).all()
+    whole = micro.scalarloop_plain(torch.tensor([s], dtype=torch.int32), n)
+    assert torch.equal(micro.i32(torch.tensor(total)).expand(8, RW), whole)
+
+
+def _ring_trips(cnt, stages):
+    """The trips one dmaloop block sums, in order, restating the ring of
+    kernels/micro.cu dmaloop_kernel: stages - 1 copies started ahead, one
+    commit group a trip (empty past the block's range); before trip k is
+    summed, __pipeline_wait_prior(stages - 2) has let all but the last
+    stages - 2 groups land, and the barrier after it frees the slot that
+    the next copy overwrites. Checks that trip k has landed when it is
+    summed, and that no copy lands in a slot whose trip is still unread."""
+    groups, slot, summed = [], {}, []
+
+    def fetch(k):
+        if k < cnt:
+            prev = slot.get(k % stages)
+            assert prev is None or prev in summed, (k, prev)
+            slot[k % stages] = k
+        groups.append(k)
+
+    for k in range(stages - 1):
+        fetch(k)
+    for k in range(cnt):
+        landed = groups[: len(groups) - (stages - 2)]
+        assert k in landed, (k, cnt, stages)
+        fetch(k + stages - 1)
+        assert slot[k % stages] == k
+        summed.append(k)
+    return summed
+
+
+@pytest.mark.parametrize("n, max_blocks", [
+    (0, 1056),                 # no copies: no block, no launch
+    (1, 1056),                 # one copy, fewer than the ring holds
+    (5, 1056),                 # fewer copies than one block's least share
+    (1001, 9),                 # odd n, a short last block
+    (1024, 1056),              # K4.5's copies
+    (1 << 15, 1056),           # K6.5's copies on 132 SMs x 8
+])
+def test_dmaloop_split_sums_to_the_whole_loop(world, n, max_blocks):
+    """dmaloop's grid (``grid_split`` at DMA_MIN_CHUNK) and each block's
+    ring of DMA_STAGES slots: every copy in exactly one block, summed there
+    once, after it landed and before its slot is reused; and the block sums
+    (the plain version over each block's copies, from its own start) add up
+    to the whole loop's for both summed heights, as the blocks' atomicAdds
+    into the zeroed output do."""
+    x, _ = world
+    stages = _micro_define("DMA_STAGES")
+    assert stages >= 2
+    hbm = torch.from_numpy(x["hbm"])
+    mask = HBROWS - 9
+    s = int(x["start"][0])
+    spans = _check_split(n, max_blocks, micro.DMA_MIN_CHUNK)
+    seen = np.zeros(n, np.int64)
+    for first, last in spans:
+        seen[[first + k for k in _ring_trips(last - first, stages)]] += 1
+    assert (seen == 1).all()
+    for rows_out in (8, 1):
+        total = torch.zeros(rows_out, RW, dtype=torch.int64)
+        for first, last in spans:
+            s_b = torch.tensor([s + 37 * first], dtype=torch.int64)
+            total += micro.dynslice_plain(hbm, micro.i32(s_b), last - first,
+                                          37, 8, mask, rows_out)
+        whole = micro.dynslice_plain(hbm, torch.tensor([s], dtype=torch.int32),
+                                     n, 37, 8, mask, rows_out)
+        assert torch.equal(micro.i32(total), whole)
+
+
+def test_scalarloop_library_is_the_plain_version_in_one_chunk(world):
+    """K5.a's library call is its plain version as one elementwise
+    expression over every trip index with a sum; on the CPU it equals the
+    plain version, in any number of chunks."""
+    x, sites = world
+    site = sites["K5.a"]
+    assert site["library"] is not None
+    assert torch.equal(site["library"](), site["plain"]())
+    s = torch.from_numpy(x["start"])
+    for n in (0, 1, 1023, 4099):
+        one = micro.scalarloop_plain(s, n, chunk_elems=max(1, n))
+        assert torch.equal(one, micro.scalarloop_plain(s, n, chunk_elems=97))
 
 
 def test_full_sizes_are_the_tools_own():

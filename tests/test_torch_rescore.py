@@ -7,7 +7,11 @@ exactly as the JAX classifier does).
 Chains, fallback flags, reason bits and step counts must be equal on every
 row with n_chains > 0: mid-reference reads and reads in the last packed
 reference row (main batch, 64 anchors), and the M3 sub-batch of the repeat
-corpus (chain.M3_A2 = 512 anchors)."""
+corpus (chain.M3_A2 = 512 anchors). The CUDA kernel's own source is also
+run on the CPU against the plain version on those batches and on two whose
+9-mer tables are too wide for the least fence stride: the mid-reference
+batch widened to a 250-kb read's buffer, and a batch that holds a 250-kb
+read with a chain."""
 import ctypes
 import os
 import shutil
@@ -70,21 +74,61 @@ def _tail_reads(idx):
             for i, r in enumerate(_reads_from(idx, spans, rng, err=0.05))]
 
 
+LONG_READ = 250_000      # bases of the long read (an ultra-long ONT read)
+LONG_ROW = 10            # its row: after the ten mid-reference reads
+ROWS_KEPT = 16           # rows of a long batch the tests run (all reads)
+
+
+def _long_reads(idx):
+    """The mid-reference reads and a 250-kb read: a 2-kb span of the
+    reference with 5 % errors inside random sequence, so that its row has a
+    chain and its batch's 9-mer tables are 250,880 wide."""
+    rng = np.random.default_rng(13)
+    seg = _reads_from(idx, [(5000, 2000)], rng, err=0.05)[0]
+    fill = rng.integers(0, 4, LONG_READ - len(seg)).astype(np.uint8)
+    read = np.concatenate([fill[:120_000], seg, fill[120_000:]])
+    return _mid_reads(idx) + [_Rec(LONG_ROW, read)]
+
+
+def table_width(read_len):
+    """K, the 9-mer table width of a batch whose longest read has
+    ``read_len`` bases: half its F+R buffer width, which the classifier
+    rounds up to 2,048."""
+    return -(-2 * read_len // 2048) * 2048 // 2
+
+
+def _widen(inp, K):
+    """The batch with its F+R read buffers zero-padded to 2K columns, as the
+    classifier pads them when another read of the batch is longer."""
+    codes = np.zeros((inp[5].shape[0], 2 * K), inp[5].dtype)
+    codes[:, : inp[5].shape[1]] = inp[5]
+    return inp[:5] + [codes] + inp[6:]
+
+
 @pytest.fixture(scope="module")
 def batches(small_my_index, repeat_my_index, repeat_reads):
     """{case: (index, first RescoreIn)}: the main batch of the
-    mid-reference reads and of the tail reads, and the M3 sub-batch of the
-    repeat corpus."""
+    mid-reference reads and of the tail reads, the M3 sub-batch of the
+    repeat corpus, and two batches at a 250-kb read's table width (the
+    first ROWS_KEPT rows, which hold every read): the mid-reference batch
+    widened, and the main batch of the mid-reference reads with a 250-kb
+    read."""
     from desamba_tpu.io.fastx import read_fastx
 
     out = {}
     for name, recs in (("mid_reference", _mid_reads(small_my_index)),
-                       ("tail_of_reference", _tail_reads(small_my_index))):
+                       ("tail_of_reference", _tail_reads(small_my_index)),
+                       ("long_read", _long_reads(small_my_index))):
         out[name] = (small_my_index, _capture(small_my_index, recs)[0])
     got = _capture(repeat_my_index, list(read_fastx(str(repeat_reads[0]))))
     wide = [g for g in got if g[2].shape[1] == 512]
     assert wide, "the repeat corpus never reached the M3 sub-batch"
     out["m3_width_512"] = (repeat_my_index, wide[0])
+    out["long_read"] = (small_my_index,
+                        [f[:ROWS_KEPT] for f in out["long_read"][1]])
+    out["mid_reference_widened"] = (small_my_index, _widen(
+        [f[:ROWS_KEPT] for f in out["mid_reference"][1]],
+        table_width(LONG_READ)))
     return out
 
 
@@ -158,8 +202,9 @@ def rescore_emu(tmp_path_factory):
         ctypes.c_void_p if c == "p" else ctypes.c_int for c in EMU_ARGS]
     lib.rescore_emulate.restype = ctypes.c_int
     lib.rescore_emu_error.restype = ctypes.c_char_p
-    lib.rescore_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.rescore_smem_bytes.restype = ctypes.c_int
+    for fn in (lib.rescore_smem_bytes, lib.rescore_fence_stride):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -196,18 +241,32 @@ def _emulate(lib, host, reverse):
 @pytest.mark.parametrize("reverse", [False, True], ids=["lanes_up",
                                                          "lanes_down"])
 @pytest.mark.parametrize("case", ["mid_reference", "tail_of_reference",
-                                  "m3_width_512"])
+                                  "m3_width_512", "mid_reference_widened",
+                                  "long_read"])
 def test_warp_kernel_source_matches_plain(batches, rescore_emu, case,
                                           reverse):
     """kernels/rescore.cu itself (one warp per read, state in shared memory)
     on every row of the captured batch, rows without chains included, run on
     the CPU with its lanes taken in one order and then the other between
     collectives: chains and all three flag columns equal the plain
-    version's. A missing __syncwarp shows in one of the two orders."""
+    version's. A missing __syncwarp shows in one of the two orders. The two
+    batches at a 250-kb read's width run with the fence stride doubled (the
+    least one would not fit a block)."""
+    from desamba_tpu_torch.engine.device import rescore_pl as trp
     from desamba_tpu_torch.engine.device import rescore_ref
 
     idx, inp = batches[case]
     host = _prep(idx, inp)
+    A2, K = host["anchors"].shape[1], host["rk_vals"].shape[2]
+    stride = trp.fence_stride(A2, K)
+    assert stride == rescore_emu.rescore_fence_stride(A2, K)
+    if case in ("mid_reference_widened", "long_read"):
+        assert K == table_width(LONG_READ) and stride == 2 * trp.FENCE
+    else:
+        assert stride == trp.FENCE
+    if case == "long_read":
+        assert host["scal"][LONG_ROW, 2] == LONG_READ
+        assert host["scal"][LONG_ROW, 0] > 0, "the long read has no chain"
     exp_c, exp_f = rescore_ref.rescore_rows(host)
     got_c, got_f = _emulate(rescore_emu, host, reverse)
     rows = np.flatnonzero(host["scal"][:, 0] > 0)
@@ -220,23 +279,33 @@ def test_warp_kernel_source_matches_plain(batches, rescore_emu, case,
 
 
 def test_kernel_shared_memory_fits_and_is_sized_alike(batches, rescore_emu):
-    """smem_bytes (the wrapper's) equals the kernel's own count at both
-    anchor widths and at the widest 9-mer table the fixtures make, and stays
-    within a block's 227 KB; a shape whose block would not fit raises before
-    anything is launched."""
+    """smem_bytes and fence_stride (the wrapper's) equal the kernel's own
+    at both anchor widths, at today's widths and the fixtures' widest table
+    and at a 250-kb, a 1-Mb and a 4-Mb read's: the block stays within 227
+    KB at any read length (the fence stride grows with K), today's widths
+    keep the least stride, and only a shape with too many anchors for any
+    stride raises, before anything is launched."""
     from desamba_tpu_torch.engine.device import rescore_pl as trp
 
     widest = max(inp[5].shape[1] // 2 for _idx, inp in batches.values())
+    long_widths = [table_width(n) for n in (250_000, 1_000_000, 4_000_000)]
     for A2 in (64, 512):
-        for K in (1024, widest, 11264):
+        for K in [1024, 11264, widest] + long_widths:
             n = trp.smem_bytes(A2, K)
+            stride = trp.fence_stride(A2, K)
             assert n == rescore_emu.rescore_smem_bytes(A2, K), (A2, K)
-            assert n % 16 == 0 and n <= 227 * 1024, (A2, K, n)
+            assert stride == rescore_emu.rescore_fence_stride(A2, K), (A2, K)
+            assert n % 16 == 0 and n <= trp.SMEM_MAX == 227 * 1024, (A2, K)
+            assert (stride == trp.FENCE) == (K <= 11264), (A2, K)
+        # the least stride that fits: half of it would not
+        for K in long_widths:
+            stride = trp.fence_stride(A2, K)
+            assert trp.WARPS_PER_BLOCK * 4 * trp._region_words(
+                A2, K, stride // 2) > trp.SMEM_MAX, (A2, K)
+    assert trp.fence_stride(64, table_width(4_000_000)) == 1024
     assert trp.smem_bytes(512, 11264) > 48 * 1024   # needs the opt-in
     with pytest.raises(ValueError, match="shared memory"):
         trp.smem_bytes(16384, 1024)
-    with pytest.raises(ValueError, match="shared memory"):
-        trp.smem_bytes(64, 1 << 20)
     idx, inp = batches["mid_reference"]
     host = _prep(idx, inp)
     prep = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
