@@ -34,11 +34,16 @@ and a C compiler. Phases:
    ``ptxas``'s registers, stack and spills;
 6. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
    at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
-   launches the compare-count kernel (K3) on a sorted table with one lane
-   per block and on an unsorted one with 8 lanes per block; its counts are
+   launches the compare-count kernel (K3) on a sorted table (the 1-lane
+   variant) and on an unsorted one (the 8-lane variant); its counts are
    zeroed just before and read just after; each result bit-equal to the
    plain version and to ``torch.searchsorted`` over the sorted table, and
-   kernel, plain version and searchsorted timed by CUDA events;
+   so is each variant on a seeded edge-case batch (the wrap of q + r, the
+   int32 extremes, duplicates; an unsorted table through the 1-lane variant
+   and a sorted one through the 8-lane variant, so that the kernel's sort
+   and no-sort paths both run for both); kernel and searchsorted timed in a
+   replayed CUDA graph and by events around eager calls, the plain version
+   by events; ``ptxas``'s line for the kernel;
 7. primitive benches: the entry point ``desamba_tpu_torch.tools.micro`` at
    the TPU tools' full shapes and trip counts, which launches each of the 17
    kernels of its 16 sites (K4, K6, K5: gathers, dynamic-offset row loads,
@@ -54,12 +59,12 @@ and a C compiler. Phases:
    and bit-equal to its plain version.
 
 Phases 7-9 zero their wrappers' launch counts just before the entry point
-runs and read them just after, as phase 6 does. Their kernels are timed in
-a replayed CUDA graph (``micro.graph_ms``; phase 7 reports the bench's own
-times): most are shorter than the tens of microseconds a Python wrapper
-takes to submit a launch, so events around eager launches would time the
-host. Plain versions and library calls are
-timed by events around eager calls, as a caller runs them.
+runs and read them just after, as phase 6 does. Their kernels, and K3 with
+its searchsorted, are timed in a replayed CUDA graph (``micro.graph_ms``;
+phase 7 reports the bench's own times): most are shorter than the tens of
+microseconds a Python wrapper takes to submit a launch, so events around
+eager launches would time the host. Plain versions and the other library
+calls are timed by events around eager calls, as a caller runs them.
 
 Each kernel's bound is the larger of the bytes its function must move
 (what this run's data needs of each input, read once; each output written
@@ -313,6 +318,32 @@ def searchsorted_count(q, t, repeats, t_sorted):
         dim=2, dtype=torch.int32)
 
 
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def cmpcount_edge_batch(seed, device):
+    """Seeded edge cases for K3: 64 rows of K 1,000 (not a power of two)
+    with long runs of duplicates and both int32 extremes, in an unsorted
+    and a row-sorted copy; 300 queries a row (more than a block's threads)
+    among them INT32_MIN, INT32_MAX and INT32_MAX - R + 2 and up, where
+    q + r wraps; R 5 (not a multiple of the kernel's four searches in
+    flight)."""
+    import torch
+
+    rng = np.random.default_rng([seed, 3])
+    B, K, P, R = 64, 1000, 300, 5
+    t = rng.integers(I32_MIN, I32_MAX, (B, K), dtype=np.int64)
+    dup = rng.random((B, K)) < 0.5
+    t[dup] = rng.choice([I32_MIN, -1, 0, 0, 7, I32_MAX], int(dup.sum()))
+    t[:, :2] = [I32_MAX, I32_MIN]                 # every row unsorted
+    q = rng.integers(I32_MIN, I32_MAX, (B, P), dtype=np.int64)
+    q[:, :4] = [I32_MIN, -1, 7, I32_MAX]
+    q[:, 4 : 4 + R] = I32_MAX - R + 2 + np.arange(R)
+    tt = torch.from_numpy(t.astype(np.int32)).to(device)
+    return dict(q=torch.from_numpy(q.astype(np.int32)).to(device),
+                t_unsorted=tt, t_sorted=torch.sort(tt, dim=1).values, R=R)
+
+
 class Rec:
     __slots__ = ("name", "seq", "qual")
 
@@ -525,6 +556,9 @@ def main():
             "library_ms": None})
 
     # ---- 6. gather bench: the compare-count kernel (K3) ---------------------
+    dev0 = torch.device("cuda")
+    k3_ptxas = ptxas_lines(built["cmpcount.cu"], "cmpcount_kernel")
+    log(f"ptxas cmpcount_kernel: {k3_ptxas}")
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -537,6 +571,7 @@ def main():
                  False))
     if sum(bench[v]["launches"] for v, *_ in variants) != launches["cmpcount"]:
         failures.append("cmpcount launches do not add up over its variants")
+    edge = cmpcount_edge_batch(args.seed, dev0)
     for v, name, replaces, t_sorted in variants:
         r = bench[v]
         q, t = r["inputs"]
@@ -545,36 +580,54 @@ def main():
         lib = searchsorted_count(q, t, gb.R, t_sorted)
         err = int(max((r["out"] - plain).abs().max(),
                       (r["out"] - lib).abs().max()))
-        ms = cuda_ms(lambda: compare_count(q, t, gb.R, lanes), 20)
+        # the edge batch through the same variant, its table in the other
+        # order: the sort path and the no-sort path run for both variants
+        eq, er = edge["q"], edge["R"]
+        et = edge["t_unsorted" if t_sorted else "t_sorted"]
+        got = compare_count(eq, et, er, lanes)
+        edge_err = int(max(
+            (got - compare_count_plain(eq, et, er)).abs().max(),
+            (got - searchsorted_count(eq, et, er, not t_sorted)).abs().max()))
+        ms = micro.graph_ms(lambda: compare_count(q, t, gb.R, lanes), dev0, 50)
+        lib_ms = micro.graph_ms(
+            lambda: searchsorted_count(q, t, gb.R, t_sorted), dev0, 50)
+        eager_ms = cuda_ms(lambda: compare_count(q, t, gb.R, lanes), 20)
+        eager_lib_ms = cuda_ms(
+            lambda: searchsorted_count(q, t, gb.R, t_sorted), 20)
         plain_ms = cuda_ms(lambda: compare_count_plain(q, t, gb.R), 3)
-        lib_ms = cuda_ms(lambda: searchsorted_count(q, t, gb.R, t_sorted), 20)
         (B, P), K = q.shape, t.shape[1]
         bms, by = bound(tensor_bytes(q, t, r["out"]),
                         cmpcount_ops(B, P, K, t_sorted))
-        log(f"{name}: B={B} K={K} P={P} R={gb.R} lanes/block {lanes}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted "
-            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-            f"max_abs_err {err}")
+        log(f"{name}: B={B} K={K} P={P} R={gb.R} "
+            f"({'sorted' if t_sorted else 'unsorted'} table): kernel "
+            f"{ms:.5f} ms in a CUDA graph, {eager_ms:.5f} ms by events "
+            f"around eager calls; searchsorted {lib_ms:.5f} ms in a graph, "
+            f"{eager_lib_ms:.5f} ms eager; plain {plain_ms:.4f} ms; bound "
+            f"{bms:.6f} ms ({by}); ptxas {k3_ptxas}; max_abs_err {err} on "
+            f"the bench's inputs, {edge_err} on the edge batch "
+            f"({tuple(eq.shape)} queries, K {et.shape[1]}, R {er}, "
+            f"{'unsorted' if t_sorted else 'sorted'} table)")
         if r["launches"] <= 0:
             failures.append(f"{name} was not launched by the gather bench")
         if (B, K, P) != (gb.B_TOOLS, gb.K, gb.P):
             failures.append(f"{name} ran at {(B, K, P)}, not the tools' shape")
-        if err != 0:
+        if err != 0 or edge_err != 0:
             failures.append(f"{name} differs from its plain version or "
-                            f"searchsorted: max_abs_err {err}")
-        if min(ms, lib_ms) < bms:
-            failures.append(f"{name}: kernel {ms} ms or searchsorted "
-                            f"{lib_ms} ms beat the bound {bms} ms")
+                            f"searchsorted: max_abs_err {err} on the bench's "
+                            f"inputs, {edge_err} on the edge batch")
+        if min(ms, lib_ms, eager_ms, eager_lib_ms) < bms:
+            failures.append(f"{name}: kernel {ms} / {eager_ms} ms or "
+                            f"searchsorted {lib_ms} / {eager_lib_ms} ms beat "
+                            f"the bound {bms} ms")
         records.append({
             "name": name, "route": "cuda",
             "source": "desamba_tpu_torch/kernels/cmpcount.cu",
             "replaces": replaces, "launches": r["launches"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+            "max_abs_err": max(err, edge_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms})
 
     # ---- 7. primitive benches (K4, K6, K5) ----------------------------------
-    dev0 = torch.device("cuda")
-
     def max_err(a, b):
         if a.shape != b.shape:
             return 1 << 62

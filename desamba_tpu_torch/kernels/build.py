@@ -104,7 +104,7 @@ def rescore_lib():
 
 
 def cmpcount_lib():
-    return _bound("cmpcount.cu", {"cmpcount_launch": "ppp" + "iiiii" + "p"})
+    return _bound("cmpcount.cu", {"cmpcount_launch": "ppp" + "iiii" + "p"})
 
 
 def plops_lib():

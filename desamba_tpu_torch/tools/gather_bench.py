@@ -12,12 +12,14 @@ variant group (default all):
   gather   ``table[b, q % K]`` per query (torch indexing)
   mxu      one-hot (B, P, K) bf16 product with the table (``torch.matmul``)
   cmp      compare-count, the plain PyTorch version
-  pallas   compare-count, the ``cmpcount`` kernel, one lane per block, on the
-           sorted table (K3a, ``pallas_cc``)
+  pallas   compare-count, the ``cmpcount`` kernel on the sorted table (K3a,
+           ``pallas_cc``): each block finds its row ascending and only
+           searches it
   rows     row gathers ``table[q % M]`` of N rows, widths 1-256 int8 and
            128 int32 (``gather_bench2.py``)
-  blocked  compare-count, the ``cmpcount`` kernel, 8 lanes per block, on an
-           unsorted table (K3b, ``cc_pallas``)
+  blocked  compare-count, the ``cmpcount`` kernel on an unsorted table (K3b,
+           ``cc_pallas``, whose TPU grid step held 8 lanes): each block
+           sorts its row in shared memory, then searches it
 
 It runs on the card (``--device cuda``, the default) and times each call by
 CUDA events; ``--device cpu`` runs the same code with the kernels' plain
@@ -173,7 +175,7 @@ def main(argv=None, reps: int = 3):
         run("cmp", "compare-count, plain PyTorch",
             lambda: compare_count_plain(x["qval"], x["tsort"], R), B * P * K)
     if "pallas" in groups:
-        kernel("pallas", "compare-count kernel, 1 lane/block",
+        kernel("pallas", "compare-count kernel, sorted table",
                x["qval"], x["tsort"], 1)
     if "rows" in groups:
         rng = np.random.default_rng(1)
@@ -188,7 +190,7 @@ def main(argv=None, reps: int = 3):
             run(f"rows_w{width}_{tname}", f"row gather w={width} {tname}",
                 lambda: row_gather(idx, table), N_ROWS * width, rows=N_ROWS)
     if "blocked" in groups:
-        kernel("blocked", f"compare-count kernel, {LANES_BLOCKED} lanes/block",
+        kernel("blocked", "compare-count kernel, unsorted table",
                x["qval_b"], x["table_b"], LANES_BLOCKED)
     return out
 
