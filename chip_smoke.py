@@ -50,7 +50,11 @@ and a C compiler. Phases:
    asynchronous copies and a scalar loop over the whole card, a block, a
    launch); each output bit-equal to its plain version and, where there is
    one, to the one index or elementwise PyTorch call with a sum that
-   computes the same function;
+   computes the same function; ``ptxas``'s line and the SASS trip loops
+   (``cuobjdump -sass``) of K6.2's and K5.c's kernels, which must hold a
+   shared-memory load and a multiply-add; and K6.2's rate of shared-memory
+   loads against the card's 33.45 TB/s (a time under that floor fails the
+   run: it would mean gathers were folded away);
 8. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
    seeded (R, 128) tiles with the edge cases of the CPU test, bit-equal to
    the plain versions;
@@ -63,8 +67,11 @@ runs and read them just after, as phase 6 does. Their kernels, and K3 with
 its searchsorted, are timed in a replayed CUDA graph (``micro.graph_ms``;
 phase 7 reports the bench's own times): most are shorter than the tens of
 microseconds a Python wrapper takes to submit a launch, so events around
-eager launches would time the host. Plain versions and the other library
-calls are timed by events around eager calls, as a caller runs them.
+eager launches would time the host. Every library call is timed both
+ways: in a replayed CUDA graph (the record's ``library_ms``, like its
+kernel) and by events around eager calls (``library_eager_ms``, as a
+caller runs it; a call that cannot be captured has only this time, and the
+run says so). Plain versions are timed by events around eager calls.
 
 Each kernel's bound is the larger of the bytes its function must move
 (what this run's data needs of each input, read once; each output written
@@ -79,9 +86,12 @@ last is the kernels' JSON record; the last line is the device record.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -95,6 +105,8 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 # give the data sheet's 67 TFLOP/s of float32 from 128 lanes x 2 (FMA).
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 64 * 132 * 1.98e9
+# shared memory: one 128-byte warp load a clock on each of the 132 SMs
+SMEM_BYTES_S = 132 * 128 * 1.98e9
 
 
 def log(*a):
@@ -202,9 +214,10 @@ def ptxas_lines(out, kernel):
     """What ``nvcc -Xptxas -v`` said of one kernel: its stack, spills,
     registers and shared memory, one string."""
     lines, mine = [], False
+    name = f"_Z{len(kernel)}{kernel}"     # its mangled name, not a suffix's
     for ln in out.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            mine = kernel in ln
+            mine = name in ln
         if mine and ("stack" in ln or "registers" in ln):
             lines.append(ln.split(":", 1)[-1].strip() if "ptxas" in ln
                          else ln.strip())
@@ -226,6 +239,52 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def library_ms(fn, device):
+    """(ms in a replayed CUDA graph, ms by events around eager calls) of a
+    library call: as many calls as fit about 20 ms (1 to 50) in the graph,
+    as ``micro.main`` times its kernels. The graph time is None where the
+    call cannot be captured."""
+    import torch
+    from desamba_tpu_torch.tools import micro
+
+    eager = cuda_ms(fn, 3)
+    try:
+        return micro.graph_ms(fn, device, max(1, min(50, int(20 / eager)))), \
+            eager
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        log(f"library call not captured in a CUDA graph: {e}")
+        return None, eager
+
+
+def sass_loops(so, kernel):
+    """The loops of one kernel in ``cuobjdump -sass`` of library ``so``:
+    for each backward branch, the opcodes (without modifiers) from its
+    target to it, innermost (shortest) first."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", so], check=True,
+                         capture_output=True, text=True).stdout
+    name = f"_Z{len(kernel)}{kernel}"
+    text = next((f for f in out.split("Function : ")[1:]
+                 if f.startswith(name)), None)
+    if text is None:
+        raise RuntimeError(f"cuobjdump: no function {kernel} in {so}")
+    ins = []
+    for ln in text.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+        if m:
+            words = m.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            ins.append((int(m.group(1), 16), op.split(".")[0], m.group(2)))
+    loops = []
+    for addr, op, txt in ins:
+        target = re.search(r"0x([0-9a-f]+)\s*$", txt)
+        if op == "BRA" and target and int(target.group(1), 16) <= addr:
+            lo = int(target.group(1), 16)
+            loops.append([o for a, o, _ in ins if lo <= a <= addr])
+    return sorted(loops, key=len)
 
 
 def bound(nbytes, ops):
@@ -553,7 +612,7 @@ def main():
             "max_abs_err": max(r["err"] for r in recs + long_recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
-            "library_ms": None})
+            "library_ms": None, "library_eager_ms": None})
 
     # ---- 6. gather bench: the compare-count kernel (K3) ---------------------
     dev0 = torch.device("cuda")
@@ -625,7 +684,7 @@ def main():
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": max(err, edge_err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms})
+            "library_ms": lib_ms, "library_eager_ms": eager_lib_ms})
 
     # ---- 7. primitive benches (K4, K6, K5) ----------------------------------
     def max_err(a, b):
@@ -634,25 +693,31 @@ def main():
         return int((a.long() - b.long()).abs().max())
 
     def small_record(name, source, replaces, launched, err, ms, plain_ms,
-                     lib_ms, nbytes, ops):
+                     lib, nbytes, ops):
+        """One kernel's record; ``lib`` is its library call's (graph ms,
+        eager ms), or None where there is none."""
         bms, by = bound(nbytes, ops)
+        lib_ms, lib_eager = lib or (None, None)
+        lib_txt = ("none" if lib is None else
+                   f"{'not captured' if lib_ms is None else f'{lib_ms:.5f}'}"
+                   f" ms in a graph, {lib_eager:.5f} ms eager")
         log(f"{name}: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, library "
-            f"{'none' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, "
-            f"bound {bms:.6f} ms ({by}; {nbytes} bytes, {ops} operations), "
-            f"{launched} launches, max_abs_err {err}")
+            f"{lib_txt}, bound {bms:.6f} ms ({by}; {nbytes} bytes, {ops} "
+            f"operations), {launched} launches, max_abs_err {err}")
         if launched <= 0:
             failures.append(f"{name} was not launched through its entry point")
         if err != 0:
             failures.append(f"{name} differs from its plain version or its "
                             f"library call: max_abs_err {err}")
-        if ms < bms or (lib_ms is not None and lib_ms < bms):
-            failures.append(f"{name}: kernel {ms} ms or library {lib_ms} ms "
+        if ms < bms or (lib is not None and min(
+                t for t in lib if t is not None) < bms):
+            failures.append(f"{name}: kernel {ms} ms or library {lib} ms "
                             f"beat the bound {bms} ms")
         records.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launched, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms})
+            "library_ms": lib_ms, "library_eager_ms": lib_eager})
 
     for f in micro.WRAPPERS:
         f.launches = 0
@@ -668,10 +733,10 @@ def main():
         failures.append(f"micro ran {len(mres)} kernels, not 17")
     for key, r in mres.items():
         err = max_err(r["out"], r["plain"]())
-        lib_ms = None
+        lib = None
         if r["library"] is not None:
             err = max(err, max_err(r["out"], r["library"]()))
-            lib_ms = cuda_ms(r["library"], 3)
+            lib = library_ms(r["library"], dev0)
         if key == "K6.0":
             log(f"K6.0 launch floor: {r['graph_ms'] * 1e3:.3f} us per launch "
                 f"in a CUDA graph, {r['eager_ms'] * 1e3:.3f} us by events "
@@ -680,8 +745,37 @@ def main():
                 f"launch-and-synchronize")
         small_record(r["name"], "desamba_tpu_torch/kernels/micro.cu",
                      r["replaces"], r["launches"], err,
-                     r["ms"], cuda_ms(r["plain"], 2), lib_ms, r["nbytes"](),
+                     r["ms"], cuda_ms(r["plain"], 2), lib, r["nbytes"](),
                      r["ops"]())
+    # K6.2 against the card's shared-memory rate: each of its trips loads
+    # every output's word from shared memory once, so a time under that
+    # floor means gathers were folded away
+    k62 = mres["K6.2"]
+    smem_bytes = 4 * k62["units"]
+    floor_ms = smem_bytes / SMEM_BYTES_S * 1e3
+    log(f"K6.2: {smem_bytes} bytes of shared-memory loads in "
+        f"{k62['ms']:.5f} ms = {smem_bytes / k62['ms'] / 1e9:.3f} TB/s, "
+        f"{100 * floor_ms / k62['ms']:.1f} % of {SMEM_BYTES_S / 1e12:.2f} "
+        f"TB/s (floor {floor_ms:.5f} ms)")
+    if k62["ms"] < floor_ms:
+        failures.append(f"K6.2 ran in {k62['ms']} ms, under the {floor_ms} ms "
+                        f"its shared-memory loads need: gathers were folded")
+    micro_so = build._lib_path("micro.cu")
+    for kernel, want in (("lgather_kernel", "LDS"), ("oneprog_kernel", "IMAD")):
+        log(f"ptxas {kernel}: {ptxas_lines(built['micro.cu'], kernel)}")
+        # the trip loops: those that hold the trip's work (a shared-memory
+        # load, a multiply-add) and neither a barrier nor a device load
+        loops = [lp for lp in sass_loops(micro_so, kernel)
+                 if want in lp and not {"BAR", "LDG"} & set(lp)]
+        if not loops:
+            failures.append(f"{kernel}: no {want} in a loop of its SASS")
+            continue
+        mix = collections.Counter(loops[-1])
+        log(f"SASS {kernel}: trip loops of "
+            + ", ".join(f"{len(lp)} instructions ({lp.count(want)} {want})"
+                        for lp in loops)
+            + "; the longest: "
+            + ", ".join(f"{n} {op}" for op, n in mix.most_common()))
     del mres
     torch.cuda.empty_cache()
 
@@ -734,7 +828,7 @@ def main():
              lambda t, s: t + s)):
         probes = [r for r in cres.values() if r["site"] == site]
         err, ms, plain_ms, nbytes, ops = 0, 0.0, 0.0, 0, 0
-        lib_ms = None
+        lib = None
         for r in probes:
             x = r["inputs"]
             err = max(err, max_err(r["out"], r["plain"](*x)))
@@ -744,11 +838,11 @@ def main():
             ops += r["out"].numel()
             if library is not None:
                 err = max(err, max_err(r["out"], library(*x)))
-                lib_ms = cuda_ms(lambda: library(*x), 20)
+                lib = library_ms(lambda: library(*x), dev0)
         if len(probes) != (13 if wrapper is caps.call_probe else 1):
             failures.append(f"{name}: {len(probes)} probes ran")
         small_record(name, "desamba_tpu_torch/kernels/caps.cu", site,
-                     by_site[wrapper.__name__], err, ms, plain_ms, lib_ms,
+                     by_site[wrapper.__name__], err, ms, plain_ms, lib,
                      nbytes, ops)
     if len(records) != 24:
         failures.append(f"{len(records)} kernel records, not 24")

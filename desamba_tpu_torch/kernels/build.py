@@ -117,12 +117,13 @@ def micro_lib():
         "micro_rowgather": "ppp" + "iii" + "p",
         "micro_egather": "ppp" + "iiii" + "p",
         "micro_dynslice": "ppp" + "i" * 7 + "p",
-        "micro_resident_blocks": "i",
-        "micro_colgather": "ppp" + "iiii" + "p",
+        "micro_resident_blocks": "ii",
+        "micro_colgather": "ppp" + "iii" + "p",
+        "micro_lgather": "ppp" + "i" * 5 + "p",
         "micro_gridstep": "pp" + "ii" + "p",
         "micro_dmaloop": "ppp" + "i" * 5 + "p",
         "micro_scalarloop": "ppp" + "iii" + "p",
-        "micro_oneprog": "pp" + "i" + "p",
+        "micro_oneprog": "ppp" + "iii" + "p",
         "micro_vecwork": "pp" + "ii" + "p",
     })
 

@@ -11,6 +11,42 @@
 // kernels compute, bit for bit (sums and products wrap as int32: they go
 // through unsigned), and keeps real the one primitive they price:
 //
+// - lgather_kernel (K6.2): the trips are split over a grid that fills the
+//   card (tools/micro.py grid_split; two blocks of 1,024 threads a SM),
+//   each block a contiguous range of them. A block stages the (32, 128)
+//   table in shared memory once; each thread sums one output over every
+//   trip of the range and adds it into the zeroed output with one integer
+//   atomicAdd, exact in any order. A warp's 32 loads of a trip are 32
+//   neighbouring columns, so they fall in 32 distinct banks (word
+//   row * 128 + l lies in bank l % 32). Bound: each SM's shared memory
+//   serves one 128-byte warp load a clock, 132 x 128 B x 1.98 GHz = 33.45
+//   TB/s, so K6.2's 2^21 x 1,024 loads take at least 0.257 ms, twice its
+//   operations bound. The loop is issue-bound near that floor, so a trip's
+//   address costs two instructions: the table sits at a shared-space
+//   address aligned to its size (the block takes twice the table), and the
+//   next row is an add and one mask-and-OR (LOP3) of the address, loaded
+//   by PTX ld.shared with no window base added (a C++ pointer into shared
+//   memory added it, a third instruction a trip, and ran slower).
+//   Every trip's gather is a load from shared memory: nothing is folded by
+//   the table's period and no address is loop-invariant. SASS (cuobjdump,
+//   sm_90a): the trip loop runs 8 trips in 32 instructions, 8 LDS, a
+//   VIADD and a LOP3 for each trip's address, 4 IADD3 that add two loads
+//   each, and the loop's count and branch.
+// - oneprog_kernel (K5.c): acc_{i+1} = 3 acc_i + i is the affine map
+//   a -> 3 a + i, so each thread folds a contiguous span of trips into a
+//   map a -> A a + B, one trip at a time (A <- 3 A, B <- 3 B + i), and the
+//   maps are composed in trip order (composition is associative, not
+//   commutative): a block's as a tree in shared memory, the blocks' by the
+//   last block to finish (a counter and __threadfence, as scalarloop);
+//   acc_n is the composed B. The trips are split over a grid (grid_split,
+//   at least 2,048 trips a block of 256 threads: 256 blocks at n = 2^19).
+//   Not one block: its 512 steps a thread are few, but 32 warps x 512 x
+//   ~2.3 instructions on one SM's four schedulers are issue-bound; over
+//   the card the kernel is its launch, 8 steps a thread, a fence and the
+//   last block's tree. SASS: B's step is one IMAD (3 B + i) and an add of
+//   the unrolled trip's offset to i, every trip; the compiler merges A's
+//   updates of 16 unrolled trips into one multiply by 3^16, A's own
+//   arithmetic, which the chain does not need.
 // - dynslice_kernel: the trips are split over a grid that fills the card,
 //   each block a contiguous range of them (the wrapper's split,
 //   tools/micro.py grid_split). A warp loads each of its trips' rows
@@ -27,8 +63,9 @@
 //   cost); it is bound by how fast the SMs read the table's rows from
 //   their caches.
 // - rowgather/egather/colgather: a gather is native here, one load per
-//   thread; tables that fit are staged in shared memory. Every trip's load
-//   is performed.
+//   thread; egather stages its table rows in shared memory, colgather
+//   (K6.3) reads its 2-MB table from L2, one block of 128 threads per index
+//   row and a serial loop of the trips. Every trip's load is performed.
 // - gridstep_kernel: one block per TPU program, so its time over the grid
 //   is the card's cost of scheduling a block; with one block it is the
 //   empty kernel, the launch floor.
@@ -52,18 +89,152 @@
 //   __reduce_add_sync, the block's into a zeroed word by integer
 //   atomicAdd; the last block to finish (a counter beside it) writes the
 //   total to the 1,024 outputs.
-// - oneprog_kernel: one block of 1,024 threads, each iterating the
-//   dependent multiply-add chain. vecwork_kernel: a grid over all SMs, the
-//   int32 elementwise rate.
+// - vecwork_kernel: a grid over all SMs, the int32 elementwise rate.
 //
-// What bounds them: the one-block loop (oneprog), latency (dependent work
-// by design); dynslice and dmaloop, L2 reads; scalarloop, the launch and
-// its atomics; the gathers and vecwork, integer operations and L2 or
+// What bounds the rest: dynslice and dmaloop, L2 reads; scalarloop, the
+// launch and its atomics; colgather, one block per index row over L2
+// loads; the other gathers and vecwork, integer operations and L2 or
 // shared-memory loads. None is near the card's memory rate.
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #define RW 128   // row width (lanes) of every table
+
+// The two kernels below (and their helpers) also compile as host C++
+// (tests/cuda_host/micro_emu.cpp runs them over block_emu.h); the rest of
+// the file needs nvcc (__CUDACC__).
+
+static inline bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// a grid of `blocks` blocks of `chunk` trips covers n trips, the last block
+// holding at least one
+static inline bool split_ok(int n, int blocks, int chunk) {
+  return n > 0 && blocks > 0 && chunk > 0 &&
+         (long long)blocks * chunk >= n && (long long)(blocks - 1) * chunk < n;
+}
+
+// A 32-bit load from the shared-space address a (on the card one LDS
+// whose address is a itself, with no window base added in the loop).
+__device__ __forceinline__ unsigned ld_shared_u32(unsigned a) {
+#ifdef __CUDA_ARCH__
+  unsigned v;
+  asm("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+#else
+  return *(const unsigned*)__cvta_shared_to_generic(a);
+#endif
+}
+
+// out[r, l] += sum over this block's trips i of
+// tab[(idx[r, l] + i) & (rows - 1), l], for the nout = r * 128 outputs;
+// block b takes the trips [b * chunk, min(n, (b + 1) * chunk)), and out
+// starts at 0. The block stages the table in shared memory at a
+// shared-space address aligned to the table's size (so the dynamic shared
+// memory is twice the table), which lets one mask and one OR wrap a
+// trip's address; thread t sums outputs t, t + blockDim, ... over every
+// trip of the range.
+#define LG_THREADS 1024
+__global__ void __launch_bounds__(LG_THREADS)
+    lgather_kernel(const int* __restrict__ tab, const int* __restrict__ idx,
+                   int* __restrict__ out, int rows, int nout, int n,
+                   int chunk) {
+  extern __shared__ int s_lg[];
+  const unsigned size = (unsigned)rows * RW * 4u;   // bytes, a power of two
+  const unsigned s0 = (unsigned)__cvta_generic_to_shared(s_lg);
+  const unsigned at = (s0 + size - 1) & ~(size - 1);
+  int* t = s_lg + (at - s0) / 4;
+  for (int w = threadIdx.x; w < rows * RW; w += blockDim.x) t[w] = tab[w];
+  __syncthreads();
+  const unsigned first = blockIdx.x * (unsigned)chunk;
+  const unsigned cnt = min((unsigned)n, first + (unsigned)chunk) - first;
+  for (int o = threadIdx.x; o < nout; o += blockDim.x) {
+    // trip `first`'s word: row (idx + first) & (rows - 1), column o % 128
+    unsigned a = at | (((((unsigned)idx[o] + first) & (unsigned)(rows - 1)) *
+                        RW + (unsigned)(o & (RW - 1))) * 4u);
+    unsigned acc = 0;
+#pragma unroll 8
+    for (unsigned i = 0; i < cnt; ++i) {
+      acc += ld_shared_u32(a);
+      a = ((a + RW * 4u) & (size - 1)) | at;   // the next row, wrapped
+    }
+    atomicAdd((unsigned*)out + o, acc);
+  }
+}
+
+// The maps a -> A a + B of a block's threads, (a, b) thread t's, composed
+// in thread order into (pa[0], pb[0]), a tree in shared memory: at level s
+// thread t's span is followed by the span s threads on, and (A2, B2) after
+// (A1, B1) is (A2 A1, A2 B1 + B2). Every thread of the block calls it.
+__device__ void compose_maps(unsigned* pa, unsigned* pb, unsigned a,
+                             unsigned b) {
+  const unsigned t = threadIdx.x, nt = blockDim.x;
+  pa[t] = a;
+  pb[t] = b;
+  for (unsigned s = 1; s < nt; s <<= 1) {
+    __syncthreads();
+    if ((t & (2 * s - 1)) == 0 && t + s < nt) {
+      const unsigned a2 = pa[t + s], b2 = pb[t + s];
+      pb[t] = a2 * pb[t] + b2;
+      pa[t] = a2 * pa[t];
+    }
+  }
+  __syncthreads();
+}
+
+// out = x + acc_n for the (8, 128) tile x, acc_0 = 0, acc_{i+1} = 3 acc_i + i
+// (mod 2^32). Block b takes the trips [b * chunk, min(n, (b + 1) * chunk)),
+// thread t of it a contiguous span of ceil(trips / blockDim) of them, which
+// it folds into the map a -> A a + B one trip at a time; the block's maps
+// compose in trip order into one, which goes into maps[2 b], maps[2 b + 1]
+// (scratch); count (zeroed) counts the blocks done, and the last one
+// composes the blocks' maps in block order and writes x + the composed B
+// (the map applied to acc_0 = 0). Shared memory (dynamic): two words a
+// thread and the last-block flag.
+#define OP_THREADS 256
+__global__ void __launch_bounds__(OP_THREADS)
+    oneprog_kernel(const int* __restrict__ x, unsigned* count,
+                   unsigned* maps, int* __restrict__ out, int n, int chunk) {
+  extern __shared__ unsigned s_op[];
+  const unsigned t = threadIdx.x, nt = blockDim.x;
+  unsigned* pa = s_op;
+  unsigned* pb = s_op + nt;
+  unsigned* last = s_op + 2 * nt;
+  const unsigned first = blockIdx.x * (unsigned)chunk;
+  const unsigned cnt = min((unsigned)n, first + (unsigned)chunk) - first;
+  const unsigned c = (cnt + nt - 1) / nt;
+  const unsigned hi = first + min(cnt, t * c + c);
+  unsigned a = 1, b = 0;
+  for (unsigned i = first + min(cnt, t * c); i < hi; ++i) {
+    a *= 3u;
+    b = b * 3u + i;
+  }
+  compose_maps(pa, pb, a, b);
+  if (t == 0) {
+    maps[2 * blockIdx.x] = pa[0];
+    maps[2 * blockIdx.x + 1] = pb[0];
+    __threadfence();              // the map is out before the block counts
+    *last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!*last) return;
+  // every block's map is out: thread t composes a contiguous run of them
+  // (read past L1, which may hold none of this launch's words)
+  const unsigned g = gridDim.x, cb = (g + nt - 1) / nt;
+  a = 1;
+  b = 0;
+  for (unsigned k = min(g, t * cb); k < min(g, t * cb + cb); ++k) {
+    const unsigned a2 = __ldcg(maps + 2 * k), b2 = __ldcg(maps + 2 * k + 1);
+    b = a2 * b + b2;
+    a = a2 * a;
+  }
+  compose_maps(pa, pb, a, b);
+  for (unsigned w = t; w < 8 * RW; w += nt)
+    out[w] = (int)((unsigned)x[w] + pb[0]);
+}
+
+#ifdef __CUDACC__
+#include <cuda_pipeline.h>
+
+#define OP_SMEM ((2 * OP_THREADS + 1) * sizeof(unsigned))
 
 // out[g, :] = sum_{r < reps} tab[(idx[g, 0] + r) & row_mask, :]
 // grid: one block per gathered row, 128 threads.
@@ -162,25 +333,17 @@ __global__ void __launch_bounds__(DS_WARPS * 32)
   }
 }
 
-// out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l]
-// grid: one block of 128 threads per index row; STAGE copies the table into
-// shared memory first.
-template <bool STAGE>
+// out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l], the table in
+// device memory; grid: one block of 128 threads per index row.
 __global__ void colgather_kernel(const int* __restrict__ tab,
                                  const int* __restrict__ idx,
                                  int* __restrict__ out, int rows, int n) {
-  extern __shared__ int s_tab[];
   const int l = threadIdx.x;
-  if (STAGE) {
-    for (int i = l; i < rows * RW; i += blockDim.x) s_tab[i] = tab[i];
-    __syncthreads();
-  }
-  const int* t = STAGE ? s_tab : tab;
   const unsigned base = (unsigned)idx[(size_t)blockIdx.x * RW + l];
   const unsigned m = (unsigned)(rows - 1);
   unsigned acc = 0;
   for (unsigned i = 0; i < (unsigned)n; ++i)
-    acc += (unsigned)t[(size_t)((base + i) & m) * RW + l];
+    acc += (unsigned)tab[(size_t)((base + i) & m) * RW + l];
   out[(size_t)blockIdx.x * RW + l] = (int)acc;
 }
 
@@ -284,15 +447,6 @@ __global__ void __launch_bounds__(SL_THREADS)
     for (int w = threadIdx.x; w < 8 * RW; w += SL_THREADS) out[w] = (int)total;
 }
 
-// out = x + acc_n, acc_0 = 0, acc_{i+1} = acc_i * 3 + i: every one of the
-// block's 1,024 threads runs the chain.
-__global__ void oneprog_kernel(const int* __restrict__ x,
-                               int* __restrict__ out, int n) {
-  unsigned acc = 0;
-  for (unsigned i = 0; i < (unsigned)n; ++i) acc = acc * 3u + i;
-  out[threadIdx.x] = (int)((unsigned)x[threadIdx.x] + acc);
-}
-
 // out[s, l] += sum_{r < passes} (v ^ (v >> min(r + 1, 31))) over this
 // block's (8, 128) tile of v; out starts at 0. An arithmetic shift by 32 or
 // more fills with the sign, which is the shift by 31.
@@ -308,8 +462,6 @@ __global__ void vecwork_kernel(const int* __restrict__ v, int* out,
 
 // ---- launchers: contiguous int32 tensors on the card; each launches on
 // `stream` and returns the CUDA error code of the launch (0 = launched) ------
-
-static inline bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 // tab (rows, 128), idx (g, 128), out (g, 128); rows a power of two
 extern "C" int micro_rowgather(const int* tab, const int* idx, int* out,
@@ -331,11 +483,22 @@ extern "C" int micro_egather(const int* tab, const int* idx, int* out, int eb,
   return (int)cudaGetLastError();
 }
 
+// lgather_kernel may take `smem` bytes of dynamic shared memory (above
+// 48 KB only after opting in)
+static cudaError_t lgather_opt_in(int smem) {
+  return smem <= 48 * 1024
+             ? cudaSuccess
+             : cudaFuncSetAttribute(lgather_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    smem);
+}
+
 // the most blocks of one grid-split kernel the card holds at once (blocks
 // per SM at full occupancy x SMs), for the wrapper's split: kernel 0
-// dynslice<8>, 1 dynslice<1>, 2 dmaloop<8>, 3 dmaloop<1>, 4 scalarloop;
+// dynslice<8>, 1 dynslice<1>, 2 dmaloop<8>, 3 dmaloop<1>, 4 scalarloop,
+// 5 lgather with `smem` bytes of dynamic shared memory a block, 6 oneprog;
 // -(CUDA error) on failure
-extern "C" int micro_resident_blocks(int kernel) {
+extern "C" int micro_resident_blocks(int kernel, int smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -361,17 +524,20 @@ extern "C" int micro_resident_blocks(int kernel) {
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, scalarloop_kernel, SL_THREADS, 0);
         break;
+      case 5:
+        e = lgather_opt_in(smem);
+        if (e == cudaSuccess)
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, lgather_kernel, LG_THREADS, smem);
+        break;
+      case 6:
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, oneprog_kernel, OP_THREADS, OP_SMEM);
+        break;
       default:
         e = cudaErrorInvalidValue;
     }
   return e == cudaSuccess ? per_sm * sms : -(int)e;
-}
-
-// a grid of `blocks` blocks of `chunk` trips covers n trips, the last block
-// holding at least one
-static inline bool split_ok(int n, int blocks, int chunk) {
-  return n > 0 && blocks > 0 && chunk > 0 &&
-         (long long)blocks * chunk >= n && (long long)(blocks - 1) * chunk < n;
 }
 
 // tab (rows, 128), 16-byte aligned, with every off_i + rows_out <= rows
@@ -394,20 +560,29 @@ extern "C" int micro_dynslice(const int* tab, const int* s, int* out, int n,
   return (int)cudaGetLastError();
 }
 
-// tab (rows, 128), idx (r, 128), out (r, 128); rows a power of two; stage:
-// copy the table into shared memory (it must fit 48 KB)
+// tab (rows, 128), idx (r, 128), out (r, 128); rows a power of two
 extern "C" int micro_colgather(const int* tab, const int* idx, int* out,
-                               int r, int rows, int n, int stage,
-                               void* stream) {
+                               int r, int rows, int n, void* stream) {
   if (r <= 0 || !pow2(rows) || n < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (stage) {
-    const size_t smem = (size_t)rows * RW * sizeof(int);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    colgather_kernel<true><<<r, RW, smem, st>>>(tab, idx, out, rows, n);
-  } else {
-    colgather_kernel<false><<<r, RW, 0, st>>>(tab, idx, out, rows, n);
-  }
+  colgather_kernel<<<r, RW, 0, (cudaStream_t)stream>>>(tab, idx, out, rows,
+                                                       n);
+  return (int)cudaGetLastError();
+}
+
+// tab (rows, 128), rows a power of two, staged in shared memory (the
+// table within 48 KB, twice its size a block); idx (r, 128); out (r, 128)
+// zeroed; the split as for dynslice
+extern "C" int micro_lgather(const int* tab, const int* idx, int* out, int r,
+                             int rows, int n, int blocks, int chunk,
+                             void* stream) {
+  const int smem = 2 * rows * RW * (int)sizeof(int);
+  if (r <= 0 || !pow2(rows) || smem > 96 * 1024 ||
+      !split_ok(n, blocks, chunk))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = lgather_opt_in(smem);
+  if (e != cudaSuccess) return (int)e;
+  lgather_kernel<<<blocks, LG_THREADS, smem, (cudaStream_t)stream>>>(
+      tab, idx, out, rows, r * RW, n, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -445,10 +620,13 @@ extern "C" int micro_scalarloop(const int* s, int* acc, int* out, int n,
   return (int)cudaGetLastError();
 }
 
-// x and out (8, 128)
-extern "C" int micro_oneprog(const int* x, int* out, int n, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  oneprog_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(x, out, n);
+// x and out (8, 128); scratch (1 + 2 * blocks,) zeroed; the split as for
+// dynslice
+extern "C" int micro_oneprog(const int* x, int* scratch, int* out, int n,
+                             int blocks, int chunk, void* stream) {
+  if (!split_ok(n, blocks, chunk)) return (int)cudaErrorInvalidValue;
+  oneprog_kernel<<<blocks, OP_THREADS, OP_SMEM, (cudaStream_t)stream>>>(
+      x, (unsigned*)scratch, (unsigned*)scratch + 1, out, n, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -459,3 +637,4 @@ extern "C" int micro_vecwork(const int* v, int* out, int nblk, int passes,
   vecwork_kernel<<<nblk, 1024, 0, (cudaStream_t)stream>>>(v, out, passes);
   return (int)cudaGetLastError();
 }
+#endif  // __CUDACC__

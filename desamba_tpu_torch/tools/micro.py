@@ -8,10 +8,11 @@ Counterpart of ``tools/pallas_micro.py``, ``tools/pallas_micro3.py`` and
 ``micro3``, ``micro2`` (one tool's sites) or ``all`` (default). Each of the
 16 sites is one Pallas kernel of those tools, computed here by a kernel of
 ``kernels/micro.cu``; it prints one line: milliseconds per call and ns per
-unit (a gathered row or element, a loop trip, a block, a copy; for the
-copy and scalar loops, whose trips the kernel spreads over the card, the
-call's time over its trips), or, for the dynamic-slice sites, a
-throughput (trips and bytes of summed rows per second).
+unit (a gathered row or element, a loop trip, a block, a copy; where
+the kernel spreads the trips over the card, as for the copy and scalar
+loops, K6.2's gather and K5.c's chain, the call's time over its trips),
+or, for the dynamic-slice sites, a throughput (trips and bytes of summed
+rows per second).
 
   micro    K4.1 row gather, K4.2 element gather, K4.3 dynamic-slice loop,
            K4.4 grid of 2,048 blocks, K4.5 loop of 4-KB asynchronous copies
@@ -22,7 +23,8 @@ throughput (trips and bytes of summed rows per second).
            32-row table, K6.3 gather from a 4,096-row table, K6.4 grid of
            32,768 blocks, K6.5 loop of copies
   micro2   K5.a scalar loop, K5.b aligned 8-row slices, K5.b2 single rows,
-           K5.c one block iterating a multiply-add chain, K5.d elementwise
+           K5.c a multiply-add chain (the TPU's one program; here an
+           ordered scan of affine maps over the card), K5.d elementwise
            int32 throughput
 
 The tables' shapes and the trip counts (``FULL``) are the TPU tools' own.
@@ -66,10 +68,12 @@ CHUNK_ELEMS = 1 << 24   # elements a plain version gathers per chunk
 DS_MIN_CHUNK = 32       # fewest trips a dynslice block takes
 DMA_MIN_CHUNK = 8       # fewest copies a dmaloop block takes
 SL_MIN_CHUNK = 2048     # fewest trips a scalarloop block takes (8 a thread)
+LG_MIN_CHUNK = 64       # fewest trips an lgather block takes
+OP_MIN_CHUNK = 2048     # fewest trips a oneprog block takes (8 a thread)
 # kernels of micro.cu whose trips are split over the card
 # (micro_resident_blocks)
 RESIDENT = {"dynslice8": 0, "dynslice1": 1, "dmaloop8": 2, "dmaloop1": 3,
-            "scalarloop": 4}
+            "scalarloop": 4, "lgather": 5, "oneprog": 6}
 
 
 def _check(name, *tensors):
@@ -177,8 +181,11 @@ def colgather_plain(tab, idx, n, chunk_elems=CHUNK_ELEMS):
 
 
 def colgather(tab, idx, n, stage):
-    """out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l];
-    ``stage``: the kernel copies the table into shared memory first."""
+    """out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l].
+    ``stage`` (K6.2): the trips are split over a grid (``grid_split``),
+    each block staging the table in shared memory and adding its partial
+    sums into a zeroed output; otherwise (K6.3) one block per index row
+    reads the table from device memory."""
     cuda = _check("colgather", tab, idx)
     _shape("colgather", tab, None, RW)
     _shape("colgather", idx, None, RW)
@@ -188,9 +195,18 @@ def colgather(tab, idx, n, stage):
     if not cuda:
         return colgather_plain(tab, idx, n)
     tab, idx = tab.contiguous(), idx.contiguous()
-    out = torch.empty_like(idx)
-    _launch(colgather, "micro_colgather", tab, idx, out, idx.shape[0],
-            tab.shape[0], n, int(bool(stage)))
+    if not stage:
+        out = torch.empty_like(idx)
+        _launch(colgather, "micro_colgather", tab, idx, out, idx.shape[0],
+                tab.shape[0], n)
+        return out
+    out = torch.zeros_like(idx)
+    # the kernel's shared memory is twice the table (kernels/micro.cu)
+    blocks, chunk = grid_split(n, _resident_blocks("lgather", 8 * tab.numel()),
+                               LG_MIN_CHUNK)
+    if blocks:
+        _launch(colgather, "micro_lgather", tab, idx, out, idx.shape[0],
+                tab.shape[0], n, blocks, chunk)
     return out
 
 
@@ -239,17 +255,18 @@ def grid_split(n, max_blocks, min_chunk):
     return -(-n // chunk), chunk
 
 
-_RESIDENT_BLOCKS: dict = {}   # (device, kernel) -> resident blocks
+_RESIDENT_BLOCKS: dict = {}   # (device, kernel, smem) -> resident blocks
 
 
-def _resident_blocks(kernel):
-    """The most blocks of ``kernel`` (a key of RESIDENT) the current card
-    holds at once."""
+def _resident_blocks(kernel, smem=0):
+    """The most blocks of ``kernel`` (a key of RESIDENT), with ``smem``
+    bytes of dynamic shared memory a block, the current card holds at
+    once."""
     from ..kernels.build import micro_lib
 
-    key = (torch.cuda.current_device(), kernel)
+    key = (torch.cuda.current_device(), kernel, smem)
     if key not in _RESIDENT_BLOCKS:
-        nb = micro_lib().micro_resident_blocks(RESIDENT[kernel])
+        nb = micro_lib().micro_resident_blocks(RESIDENT[kernel], smem)
         if nb <= 0:
             raise RuntimeError(f"micro_resident_blocks failed: CUDA error "
                                f"{-nb}")
@@ -334,14 +351,22 @@ def oneprog_plain(x, n):
 
 
 def oneprog(x, n):
-    """x + acc_n, acc_0 = 0, acc_{i+1} = acc_i * 3 + i (int32, wrapping)."""
+    """x + acc_n, acc_0 = 0, acc_{i+1} = acc_i * 3 + i (int32, wrapping).
+    The kernel splits the trips over a grid (``grid_split``); each thread
+    folds a contiguous span of them into an affine map, the maps are
+    composed in trip order in each block and then, by the last block to
+    finish, over the blocks."""
     cuda = _check("oneprog", x)
     _shape("oneprog", x, 8, RW)
     if not cuda:
         return oneprog_plain(x, n)
     x = x.contiguous()
+    blocks, chunk = grid_split(n, _resident_blocks("oneprog"), OP_MIN_CHUNK)
+    if not blocks:
+        return x.clone()
+    scratch = torch.zeros(1 + 2 * blocks, dtype=I32, device=x.device)
     out = torch.empty_like(x)
-    _launch(oneprog, "micro_oneprog", x, out, n)
+    _launch(oneprog, "micro_oneprog", x, scratch, out, n, blocks, chunk)
     return out
 
 
@@ -433,9 +458,10 @@ def sites(x, sizes=None):
     wrapper, ``plain`` its plain version; ``library`` is one index or
     elementwise PyTorch call with a sum that computes the same function:
     the plain version in a single chunk (for K5.a, one elementwise
-    expression over every trip index, summed). None where there is none:
-    the trips of K6.2 would need a 16-GB index, K5.c is a recurrence and
-    K5.d many passes.
+    expression over every trip index, summed; for K5.d, one broadcast
+    expression over the passes' shift counts, clamped to 31, 0.5 GB of
+    int32 at the tools' size). None where there is none: the trips of K6.2
+    would need a 16-GB index, and K5.c is a recurrence.
     ``ops()`` is the least int32 operations the function needs on these
     inputs: one add per summed element, and for K5.a and K5.c one per trip
     (a closed form is not the function's work). ``nbytes()`` is what it
@@ -570,14 +596,17 @@ def sites(x, sizes=None):
          n2 // 4, 7, 1, kr - 2, 1, 1)
     onep = z["ONEP"]
     add("K5.c", "micro2", "micro2_oneprog", "tools/pallas_micro2.py:130",
-        f"one block, multiply-add chain x{onep}", "trip", onep,
+        f"multiply-add chain x{onep}, an ordered scan", "trip", onep,
         lambda: oneprog(x8, onep), lambda: oneprog_plain(x8, onep), None,
         onep + x8.numel(), lambda: 8 * x8.numel())
     xv, vp = x["xv"], z["VPASS"]
+    shift = _arange(1, vp + 1, dev).clamp(max=31).to(I32)
     add("K5.d", "micro2", "micro2_vecwork", "tools/pallas_micro2.py:157",
         f"elementwise xor/shift/add, {vp} passes over {xv.numel()} words",
         "element pass", xv.numel() * vp,
-        lambda: vecwork(xv, vp), lambda: vecwork_plain(xv, vp), None,
+        lambda: vecwork(xv, vp), lambda: vecwork_plain(xv, vp),
+        lambda: i32((xv[None] ^ (xv[None] >> shift[:, None, None])).view(
+            vp, -1, 8, RW).sum((0, 1), dtype=I64)),
         xv.numel() * vp, lambda: 4 * xv.numel() + 4 * 8 * RW)
     return out
 

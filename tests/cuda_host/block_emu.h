@@ -9,10 +9,10 @@
 // makes and another reads without a barrier between them shows as a
 // different value in one of the two orders, and a barrier that not every
 // thread reaches, or two different barriers reached at once, stops the run
-// with an error. Blocks run one after another. The block size is the
-// caller's: each thread has a STACK-byte stack, so a test runs the kernel
-// at a small block. warp_emu.h is the stand-in for warp collectives; the two
-// are not used together.
+// with an error. Blocks run one after another, so atomics and fences are
+// plain host operations. The block size is the caller's: each thread has a
+// STACK-byte stack, so a test runs the kernel at a small block. warp_emu.h
+// is the stand-in for warp collectives; the two are not used together.
 #pragma once
 #define CUDA_HOST_BLOCK_EMU 1
 #include <ucontext.h>
@@ -28,6 +28,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __shared__
+#define __launch_bounds__(...)
 
 struct emu_dim3 {
   unsigned x, y, z;
@@ -41,7 +42,7 @@ enum Kind { NONE, SYNC, SYNC_AND };
 
 struct State {
   int cur = 0;                      // the running thread
-  emu_dim3 bid{0, 0, 0}, bdim{0, 1, 1};
+  emu_dim3 bid{0, 0, 0}, bdim{0, 1, 1}, gdim{1, 1, 1};
   std::vector<emu_dim3> tid;
   ucontext_t sched;
   std::vector<ucontext_t> ctx;
@@ -68,11 +69,13 @@ inline int arrive(Kind k, int v) {
   return S.result;
 }
 
-// Run block b of `threads` threads. Returns nullptr, or what went wrong.
+// Run block b of a grid of `blocks`, of `threads` threads each. Returns
+// nullptr, or what went wrong.
 inline const char* run_block(int b, int threads, bool reverse,
-                             std::function<void()> fn) {
+                             std::function<void()> fn, int blocks = 1) {
   S.body = std::move(fn);
   S.bid = emu_dim3{(unsigned)b, 0, 0};
+  S.gdim = emu_dim3{(unsigned)blocks, 1, 1};
   S.bdim = emu_dim3{(unsigned)threads, 1, 1};
   S.tid.resize(threads);
   S.ctx.resize(threads);
@@ -112,10 +115,36 @@ inline const char* run_block(int b, int threads, bool reverse,
 #define threadIdx (bemu::S.tid[bemu::S.cur])
 #define blockIdx (bemu::S.bid)
 #define blockDim (bemu::S.bdim)
+#define gridDim (bemu::S.gdim)
 
 // ---- the device API ---------------------------------------------------------
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
+
+// Blocks run one after another on one host thread, so an atomic is a plain
+// read-modify-write and a fence has nothing to order.
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+inline void __threadfence() {}
+inline unsigned __ldcg(const unsigned* p) { return *p; }
+
+// Shared-space addresses: byte offsets from bemu::shared_base, which the
+// emulation unit points at its shared memory, plus bemu::SHARED_AT (so
+// that, as on the card, a block's shared memory does not start at 0).
+namespace bemu {
+constexpr unsigned SHARED_AT = 1024;
+inline const char* shared_base = nullptr;
+}  // namespace bemu
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return (size_t)((const char*)p - bemu::shared_base) + bemu::SHARED_AT;
+}
+inline void* __cvta_shared_to_generic(size_t a) {
+  return (void*)(bemu::shared_base + (a - bemu::SHARED_AT));
+}
 
 inline void __syncthreads() { bemu::arrive(bemu::SYNC, 1); }
 inline int __syncthreads_and(int pred) {

@@ -1,0 +1,74 @@
+// The two kernels of kernels/micro.cu that compile as host C++
+// (lgather_kernel, K6.2, and oneprog_kernel, K5.c) over block_emu.h:
+// micro_emu_lgather and micro_emu_oneprog run each kernel's grid on the
+// CPU, block by block, with the arguments of its launcher (no stream), the
+// block size and an order: `reverse` runs the blocks from the last to the
+// first (so another block finishes last) and each block's threads n-1..0
+// between barriers. Each returns 0, or 1 with the reason in
+// micro_emu_error.
+#include "block_emu.h"
+
+// lgather's shared memory: twice the largest table micro_lgather takes, 64
+// rows (a power of two within 48 KB)
+alignas(16) int s_lg[2 * 64 * 128];
+// oneprog's: A and B of each thread's map, and the last-block flag
+unsigned s_op[2 * 256 + 1];
+
+#include "micro.cu"
+
+static_assert(sizeof(s_op) == (2 * OP_THREADS + 1) * sizeof(unsigned),
+              "oneprog's launch");
+
+static const char* last_error = "";
+
+
+extern "C" const char* micro_emu_error() { return last_error; }
+
+// the k-th block to run of `blocks`
+static int run(int k, int blocks, int threads, int reverse,
+               std::function<void()> fn) {
+  const int b = reverse ? blocks - 1 - k : k;
+  const char* err =
+      bemu::run_block(b, threads, reverse != 0, std::move(fn), blocks);
+  last_error = err ? err : "";
+  return err ? 1 : 0;
+}
+
+// tab (rows, 128), idx (r, 128), out (r, 128) zeroed; `blocks` blocks of
+// `chunk` trips cover n (micro_lgather's checks)
+extern "C" int micro_emu_lgather(const int* tab, const int* idx, int* out,
+                                 int r, int rows, int n, int blocks,
+                                 int chunk, int threads, int reverse) {
+  if (!pow2(rows) || rows > 64 || threads <= 0 || threads > LG_THREADS ||
+      !split_ok(n, blocks, chunk)) {
+    last_error = "argument out of range";
+    return 1;
+  }
+  bemu::shared_base = (const char*)s_lg;
+  for (int b = 0; b < blocks; ++b) {
+    std::memset(s_lg, 0xA5, sizeof(s_lg));   // shared memory starts undefined
+    if (run(b, blocks, threads, reverse,
+            [&] { lgather_kernel(tab, idx, out, rows, r * RW, n, chunk); }))
+      return 1;
+  }
+  return 0;
+}
+
+// x and out (8, 128); scratch (1 + 2 * blocks,) zeroed; the split as for
+// micro_lgather
+extern "C" int micro_emu_oneprog(const int* x, unsigned* scratch, int* out,
+                                 int n, int blocks, int chunk, int threads,
+                                 int reverse) {
+  if (threads <= 0 || threads > OP_THREADS || !split_ok(n, blocks, chunk)) {
+    last_error = "argument out of range";
+    return 1;
+  }
+  for (int b = 0; b < blocks; ++b) {
+    std::memset(s_op, 0xA5, sizeof(s_op));
+    if (run(b, blocks, threads, reverse, [&] {
+          oneprog_kernel(x, scratch, scratch + 1, out, n, chunk);
+        }))
+      return 1;
+  }
+  return 0;
+}

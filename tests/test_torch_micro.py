@@ -12,7 +12,19 @@ too, and are also held against a numpy restatement of the loop. Inputs are
 the port's ``make_inputs`` from a seed, so the tables the tools left at zero
 carry values, the start scalar is not 0 and can be negative, and the
 elementwise input has negative words (which pins the shift by 32 and more).
+
+The two kernels of ``kernels/micro.cu`` that compile as host C++ (K6.2's
+``lgather_kernel`` and K5.c's ``oneprog_kernel``) also run here from their
+own source, through ``tests/cuda_host/micro_emu.cpp`` over ``block_emu.h``
+(a block's threads as coroutines, in both orders between barriers), against
+the plain versions; and the splits of their work (trips over blocks and
+threads, affine maps composed in trip order) are restated in numpy.
 """
+import ctypes
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -586,3 +598,273 @@ def test_entry_point_needs_a_card_for_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         micro.main(["micro2"])
+
+
+# ---- the CUDA source of K6.2 and K5.c, run on the CPU ------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+KERNELS = os.path.join(HERE, "..", "desamba_tpu_torch", "kernels")
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+M32 = (1 << 32) - 1
+# trip counts: none, one, around the table's 32 rows, and a prime (no chunk
+# of more than one trip divides it)
+EMU_N = [0, 1, 31, 32, 33, 3001]
+
+
+@pytest.fixture(scope="module")
+def micro_emu(tmp_path_factory):
+    """lgather_kernel and oneprog_kernel of kernels/micro.cu compiled as
+    host C++ over tests/cuda_host/block_emu.h, loaded with ctypes."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to emulate the kernels with")
+    so = str(tmp_path_factory.mktemp("micro_emu") / "micro_emu.so")
+    host = os.path.join(HERE, "cuda_host")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I", host,
+                    "-I", KERNELS, os.path.join(host, "micro_emu.cpp"),
+                    "-o", so], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    lib.micro_emu_lgather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.micro_emu_oneprog.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    lib.micro_emu_lgather.restype = lib.micro_emu_oneprog.restype = ctypes.c_int
+    lib.micro_emu_error.restype = ctypes.c_char_p
+    return lib
+
+
+def _lgather_inputs(seed=13):
+    """K6.2's shapes from a seed: a (32, 128) table over the whole int32
+    range (so that sums wrap) and (8, 128) start rows, with negative ones,
+    both int32 extremes and a row of starts below -32."""
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(I32_MIN, I32_MAX, (GK, RW), dtype=np.int64)
+    idx = rng.integers(0, GK, (8, RW), dtype=np.int64)
+    idx[0, :5] = [-1, -33, I32_MIN, I32_MAX, I32_MAX - 3]
+    idx[1] = rng.integers(-(1 << 20), -32, RW)
+    return tab.astype(np.int32), idx.astype(np.int32)
+
+
+def _emu_lgather(lib, tab, idx, n, max_blocks, min_chunk, threads, reverse):
+    """The kernel's grid as the wrapper splits it (``grid_split``) at
+    ``max_blocks`` and ``min_chunk``, on the CPU: (out, blocks)."""
+    blocks, chunk = micro.grid_split(n, max_blocks, min_chunk)
+    out = np.zeros(idx.shape, np.int32)            # the wrapper zeroes it
+    if blocks:
+        rc = lib.micro_emu_lgather(tab.ctypes.data, idx.ctypes.data,
+                                   out.ctypes.data, idx.shape[0],
+                                   tab.shape[0], n, blocks, chunk, threads,
+                                   int(reverse))
+        assert rc == 0, lib.micro_emu_error().decode()
+    return out, blocks
+
+
+@pytest.mark.parametrize("reverse", [False, True],
+                         ids=["threads_up", "threads_down"])
+@pytest.mark.parametrize("n", EMU_N)
+def test_lgather_kernel_source_matches_plain(micro_emu, n, reverse):
+    """kernels/micro.cu lgather_kernel (K6.2) itself, on the CPU: several
+    blocks of its trips at the launcher's block size and at a block that
+    does not divide the 1,024 outputs, each block's threads in one order
+    and then the other, summed into a zeroed output, equal the plain
+    version bit for bit, negative and extreme start rows included."""
+    tab, idx = _lgather_inputs()
+    exp = micro.colgather_plain(torch.from_numpy(tab), torch.from_numpy(idx),
+                                n).numpy()
+    for max_blocks, min_chunk, threads in (
+            (5, 1, _micro_define("LG_THREADS")),   # the launcher's block
+            (3, 4, 96),
+            (264, micro.LG_MIN_CHUNK, 128)):          # the wrapper's split
+        got, blocks = _emu_lgather(micro_emu, tab, idx, n, max_blocks,
+                                   min_chunk, threads, reverse)
+        assert np.array_equal(got, exp), (
+            f"n {n}, {blocks} blocks of {threads} threads: "
+            f"{int((got != exp).sum())} of {exp.size} sums differ")
+        if max_blocks == 5 and n >= 5:
+            assert blocks == 5
+    if n:
+        assert len(np.unique(exp)) > 1
+    if n >= GK:     # the sums wrap int32
+        exact = sum(tab.astype(np.int64)[(idx.astype(np.int64) + i) % GK,
+                                         np.arange(RW)] for i in range(GK))
+        assert (np.abs(exact) >= 1 << 31).any()
+
+
+def _emu_oneprog(lib, x, n, max_blocks, min_chunk, threads, reverse):
+    """The kernel's grid as the wrapper splits it, on the CPU: (out,
+    blocks); x itself for no trips, where the wrapper launches nothing."""
+    blocks, chunk = micro.grid_split(n, max_blocks, min_chunk)
+    if not blocks:
+        return x.copy(), 0
+    scratch = np.zeros(1 + 2 * blocks, np.uint32)  # the wrapper zeroes it
+    out = np.full((8, RW), -7, np.int32)           # every word is written
+    rc = lib.micro_emu_oneprog(x.ctypes.data, scratch.ctypes.data,
+                               out.ctypes.data, n, blocks, chunk, threads,
+                               int(reverse))
+    assert rc == 0, lib.micro_emu_error().decode()
+    assert scratch[0] == blocks                    # every block counted
+    return out, blocks
+
+
+@pytest.mark.parametrize("reverse", [False, True],
+                         ids=["forward", "backward"])
+@pytest.mark.parametrize("n", EMU_N + [1 << 14])
+def test_oneprog_kernel_source_matches_plain(micro_emu, n, reverse):
+    """kernels/micro.cu oneprog_kernel (K5.c) itself, on the CPU: one block
+    and several (so that the last block composes the others' maps), at the
+    launcher's 256 threads, at 32, 7 (not a power of two: the tree's last
+    span is short) and 4 (fewer threads than blocks), blocks and threads
+    run first to last and then last to first (so the last block to finish
+    is another one), equals the plain version bit for bit."""
+    rng = np.random.default_rng(17)
+    x = rng.integers(I32_MIN, I32_MAX, (8, RW), dtype=np.int64).astype(
+        np.int32)
+    exp = micro.oneprog_plain(torch.from_numpy(x), n).numpy()
+    full = _micro_define("OP_THREADS")
+    for max_blocks, min_chunk, threads in (
+            (1056, micro.OP_MIN_CHUNK, full),    # the wrapper's split
+            (5, 1, full), (3, 2, 32), (7, 1, 7),
+            (13, 1, 4)):     # more blocks than threads: the last block's
+                             # threads each compose a run of block maps
+        got, blocks = _emu_oneprog(micro_emu, x, n, max_blocks, min_chunk,
+                                   threads, reverse)
+        assert np.array_equal(got, exp), (n, blocks, threads)
+        if max_blocks < 10 and n >= 2 * max_blocks:
+            assert blocks == max_blocks
+
+
+def test_emulated_launches_refuse_what_the_launchers_refuse(micro_emu):
+    tab, idx = _lgather_inputs()
+    out = np.zeros(idx.shape, np.int32)
+    for rows, n, blocks, chunk in ((24, 8, 1, 8),     # rows not a power of 2
+                                   (GK, 8, 2, 8),     # an empty last block
+                                   (GK, 9, 1, 8)):    # a trip left over
+        assert micro_emu.micro_emu_lgather(
+            tab.ctypes.data, idx.ctypes.data, out.ctypes.data, 8, rows, n,
+            blocks, chunk, 32, 0) == 1
+        assert b"out of range" in micro_emu.micro_emu_error()
+    x = np.zeros((8, RW), np.int32)
+    scratch = np.zeros(3, np.uint32)
+    for n, blocks, chunk, threads in ((4, 1, 4, 512),  # over the launcher's
+                                      (0, 1, 4, 32),   # no trips
+                                      (9, 1, 8, 32)):  # a trip left over
+        assert micro_emu.micro_emu_oneprog(
+            x.ctypes.data, scratch.ctypes.data, x.ctypes.data, n, blocks,
+            chunk, threads, 0) == 1
+        assert b"out of range" in micro_emu.micro_emu_error()
+
+
+@pytest.mark.parametrize("n, max_blocks", [
+    (0, 264),                  # no trips: no block, no launch
+    (1, 264),                  # one trip
+    (63, 264),                 # fewer trips than one block's least share
+    (3001, 5),                 # a prime: a short last block
+    (1 << 16, 264),            # 132 SMs x 2 blocks of 1,024 threads
+])
+def test_lgather_split_sums_to_the_whole_loop(n, max_blocks):
+    """lgather's grid (``grid_split`` at LG_MIN_CHUNK): every trip in
+    exactly one block, and inside a block every output in exactly one
+    thread (thread t takes outputs t, t + LG_THREADS, ... over all of the
+    block's trips, restating kernels/micro.cu lgather_kernel); and the
+    block partial sums (the plain version over each block's trips, its
+    start rows moved on by the range's first trip) add up to the whole
+    loop's, which is what the blocks' atomicAdds into the zeroed output
+    compute."""
+    threads = _micro_define("LG_THREADS")
+    tab, idx = (torch.from_numpy(a) for a in _lgather_inputs())
+    spans = _check_split(n, max_blocks, micro.LG_MIN_CHUNK)
+    seen = np.zeros(n, np.int64)
+    total = torch.zeros(idx.shape, dtype=torch.int64)
+    for first, last in spans:
+        seen[first:last] += 1
+        total += micro.colgather_plain(tab, micro.i32(idx.long() + first),
+                                       last - first)
+    assert (seen == 1).all()
+    owners = sorted(o for t in range(threads)
+                    for o in range(t, idx.numel(), threads))
+    assert owners == list(range(idx.numel()))
+    assert torch.equal(micro.i32(total), micro.colgather_plain(tab, idx, n))
+
+
+def _affine_maps(span, threads):
+    """Each thread's (A, B) of kernels/micro.cu oneprog_kernel for one
+    block's trips [first, last): thread t folds its span [first + t c,
+    first + min(cnt, (t + 1) c)), c = ceil(cnt / threads), one trip at a
+    time, vectorised over the threads. Returns (A, B, the spans)."""
+    first, last = span
+    cnt = last - first
+    c = -(-cnt // threads)
+    t = np.arange(threads, dtype=np.uint64)
+    lo = first + np.minimum(cnt, t * c)
+    hi = first + np.minimum(cnt, t * c + c)
+    a = np.ones(threads, np.uint64)
+    b = np.zeros(threads, np.uint64)
+    for j in range(c):
+        i = lo + np.uint64(j)
+        live = i < hi
+        a = np.where(live, (a * np.uint64(3)) & np.uint64(M32), a)
+        b = np.where(live, (b * np.uint64(3) + i) & np.uint64(M32), b)
+    return list(a.astype(object)), list(b.astype(object)), list(zip(lo, hi))
+
+
+def _compose(maps):
+    """The maps applied one after another, as one (A, B)."""
+    a, b = 1, 0
+    for a2, b2 in maps:
+        a, b = (a2 * a) & M32, (a2 * b + b2) & M32
+    return a, b
+
+
+def _tree(pa, pb):
+    """kernels/micro.cu compose_maps: the threads' maps as its tree."""
+    pa, pb, s = list(pa), list(pb), 1
+    while s < len(pa):
+        for t in range(0, len(pa) - s, 2 * s):
+            pb[t] = (pa[t + s] * pb[t] + pb[t + s]) & M32
+            pa[t] = (pa[t + s] * pa[t]) & M32
+        s *= 2
+    return pa[0], pb[0]
+
+
+@pytest.mark.parametrize("n, max_blocks, threads, block_order_shows", [
+    (0, 1056, 256, False),     # no trips: no block, no launch
+    (1, 1056, 256, False),     # one trip, one thread's map
+    (3001, 1056, 256, True),   # a prime, two blocks (the second short)
+    (3001, 5, 7, True),        # a block size that is not a power of two
+    (1 << 19, 1056, 256, False),      # the tool's size, as the wrapper
+                                      # splits it: see below
+    ((1 << 19) + 1001, 1056, 256, True),   # 257 blocks, the last short
+])
+def test_oneprog_maps_composed_in_order_equal_the_chain(n, max_blocks,
+                                                        threads,
+                                                        block_order_shows):
+    """oneprog's split (``grid_split`` at OP_MIN_CHUNK, then each block's
+    trips over its threads): every trip in exactly one block and one
+    thread's span; the maps composed in trip order, one after another and
+    as the kernel's trees (each block's threads, then the blocks), give the
+    serial chain's acc_n; and in reverse order (the threads' maps, and the
+    blocks') another number, so the check sees the order. One exception:
+    at the tool's own size every block holds 2,048 trips, so every block's
+    A is 3^2048 = 1 (mod 2^13) and the blocks' maps give the same sum mod
+    2^32 in either order. A kernel whose last block composed the blocks
+    out of order would pass on the card at full size; the odd sizes here
+    and the emulated kernel's cases are what hold that order."""
+    spans = _check_split(n, max_blocks, micro.OP_MIN_CHUNK)
+    seen = np.zeros(n, np.int64)
+    maps, blocks = [], []
+    for span in spans:
+        a, b, th = _affine_maps(span, threads)
+        for lo, hi in th:
+            seen[int(lo):int(hi)] += 1
+        maps += zip(a, b)
+        blocks.append(_tree(a, b))
+    assert (seen == 1).all()
+    acc = 0
+    for i in range(n):
+        acc = (acc * 3 + i) & M32
+    assert _compose(maps)[1] == acc
+    assert _compose(blocks)[1] == acc
+    if blocks:
+        assert _tree(*zip(*blocks))[1] == acc
+    assert (_compose(reversed(maps))[1] != acc) == (n > 1)
+    assert (_compose(reversed(blocks))[1] != acc) == block_order_shows
+    assert int(micro.oneprog_plain(torch.zeros(8, RW, dtype=torch.int32),
+                                   n)[0, 0]) & M32 == acc
