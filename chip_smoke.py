@@ -51,16 +51,21 @@ and a C compiler. Phases:
    launch); each output bit-equal to its plain version and, where there is
    one, to the one index or elementwise PyTorch call with a sum that
    computes the same function; ``ptxas``'s line and the SASS trip loops
-   (``cuobjdump -sass``) of K6.2's and K5.c's kernels, which must hold a
-   shared-memory load and a multiply-add; and K6.2's rate of shared-memory
-   loads against the card's 33.45 TB/s (a time under that floor fails the
-   run: it would mean gathers were folded away);
+   (``cuobjdump -sass``) of K6.2's, K6.3's and K5.c's kernels, which must
+   hold a shared-memory load (K6.2, K6.3) or a multiply-add (K5.c) and
+   neither a barrier nor a device load; and K6.2's and K6.3's rates of
+   shared-memory loads against the card's 33.45 TB/s (a time under that
+   floor fails the run: it would mean gathers were folded away);
 8. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
    seeded (R, 128) tiles with the edge cases of the CPU test, bit-equal to
    the plain versions;
 9. capability probes: the entry point ``desamba_tpu_torch.tools.caps``
    (K7), every probe OK against its numpy expression (it raises otherwise)
-   and bit-equal to its plain version.
+   and bit-equal to its plain version; ``ptxas``'s line and the SASS load
+   and store counts of K7.3's ``p_s2``.
+
+A line then lists every kernel slower than its library call in a graph
+(printed only: a slow kernel is a finding, not a failure).
 
 Phases 7-9 zero their wrappers' launch counts just before the entry point
 runs and read them just after, as phase 6 does. Their kernels, and K3 with
@@ -259,10 +264,9 @@ def library_ms(fn, device):
         return None, eager
 
 
-def sass_loops(so, kernel):
-    """The loops of one kernel in ``cuobjdump -sass`` of library ``so``:
-    for each backward branch, the opcodes (without modifiers) from its
-    target to it, innermost (shortest) first."""
+def sass(so, kernel):
+    """One kernel's instructions in ``cuobjdump -sass`` of library ``so``:
+    [(address, opcode without modifiers, the instruction)]."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", so], check=True,
                          capture_output=True, text=True).stdout
@@ -278,6 +282,14 @@ def sass_loops(so, kernel):
             words = m.group(2).split()
             op = words[1] if words[0].startswith("@") else words[0]
             ins.append((int(m.group(1), 16), op.split(".")[0], m.group(2)))
+    return ins
+
+
+def sass_loops(so, kernel):
+    """The loops of one kernel in ``cuobjdump -sass`` of library ``so``:
+    for each backward branch, the opcodes (without modifiers) from its
+    target to it, innermost (shortest) first."""
+    ins = sass(so, kernel)
     loops = []
     for addr, op, txt in ins:
         target = re.search(r"0x([0-9a-f]+)\s*$", txt)
@@ -747,21 +759,32 @@ def main():
                      r["replaces"], r["launches"], err,
                      r["ms"], cuda_ms(r["plain"], 2), lib, r["nbytes"](),
                      r["ops"]())
-    # K6.2 against the card's shared-memory rate: each of its trips loads
-    # every output's word from shared memory once, so a time under that
-    # floor means gathers were folded away
-    k62 = mres["K6.2"]
-    smem_bytes = 4 * k62["units"]
-    floor_ms = smem_bytes / SMEM_BYTES_S * 1e3
-    log(f"K6.2: {smem_bytes} bytes of shared-memory loads in "
-        f"{k62['ms']:.5f} ms = {smem_bytes / k62['ms'] / 1e9:.3f} TB/s, "
-        f"{100 * floor_ms / k62['ms']:.1f} % of {SMEM_BYTES_S / 1e12:.2f} "
-        f"TB/s (floor {floor_ms:.5f} ms)")
-    if k62["ms"] < floor_ms:
-        failures.append(f"K6.2 ran in {k62['ms']} ms, under the {floor_ms} ms "
-                        f"its shared-memory loads need: gathers were folded")
+    # K6.2 and K6.3 against the card's shared-memory rate: each of their
+    # trips loads every output's word from shared memory once, so a time
+    # under that floor means gathers were folded away
+    for key in ("K6.2", "K6.3"):
+        k = mres[key]
+        smem_bytes = 4 * k["units"]
+        floor_ms = smem_bytes / SMEM_BYTES_S * 1e3
+        log(f"{key}: {smem_bytes} bytes of shared-memory loads in "
+            f"{k['ms']:.5f} ms = {smem_bytes / k['ms'] / 1e9:.3f} TB/s, "
+            f"{100 * floor_ms / k['ms']:.1f} % of "
+            f"{SMEM_BYTES_S / 1e12:.2f} TB/s (floor {floor_ms:.5f} ms)")
+        if k["ms"] < floor_ms:
+            failures.append(f"{key} ran in {k['ms']} ms, under the "
+                            f"{floor_ms} ms its shared-memory loads need: "
+                            f"gathers were folded")
+    # K6.3 with one trip a column: the same grid's staging, launch and
+    # zeroed output without the trips
+    x3 = micro.make_inputs(dev0, args.seed)
+    one_ms = micro.graph_ms(
+        lambda: micro.colgather(x3["tab"], x3["idxr"], 1, False), dev0, 50)
+    log(f"K6.3 with one trip: {one_ms:.5f} ms (staging the columns, the "
+        f"launch and the zeroed output)")
+    del x3
     micro_so = build._lib_path("micro.cu")
-    for kernel, want in (("lgather_kernel", "LDS"), ("oneprog_kernel", "IMAD")):
+    for kernel, want in (("lgather_kernel", "LDS"), ("rgather_kernel", "LDS"),
+                         ("oneprog_kernel", "IMAD")):
         log(f"ptxas {kernel}: {ptxas_lines(built['micro.cu'], kernel)}")
         # the trip loops: those that hold the trip's work (a shared-memory
         # load, a multiply-add) and neither a barrier nor a device load
@@ -844,6 +867,19 @@ def main():
         small_record(name, "desamba_tpu_torch/kernels/caps.cu", site,
                      by_site[wrapper.__name__], err, ms, plain_ms, lib,
                      nbytes, ops)
+    # p_s2 (K7.3): its loads must not wait for its stores
+    caps_so = build._lib_path("caps.cu")
+    mix = collections.Counter(op for _, op, _ in sass(caps_so, "p_s2")
+                              if op != "NOP")
+    log(f"ptxas p_s2: {ptxas_lines(built['caps.cu'], 'p_s2')}; SASS: "
+        f"{mix['LDG']} LDG, {mix['STG']} STG, {sum(mix.values())} "
+        f"instructions besides padding")
+
+    slower = [f"{r['name']} ({r['ms']:.5f} ms against {r['library_ms']:.5f})"
+              for r in records
+              if r["library_ms"] is not None and r["ms"] > r["library_ms"]]
+    log("kernels slower than their library call in a graph: "
+        + (", ".join(slower) or "none"))
     if len(records) != 24:
         failures.append(f"{len(records)} kernel records, not 24")
     log(json.dumps({"kernels": records}))

@@ -118,7 +118,7 @@ def micro_lib():
         "micro_egather": "ppp" + "iiii" + "p",
         "micro_dynslice": "ppp" + "i" * 7 + "p",
         "micro_resident_blocks": "ii",
-        "micro_colgather": "ppp" + "iii" + "p",
+        "micro_rgather": "ppp" + "i" * 5 + "p",
         "micro_lgather": "ppp" + "i" * 5 + "p",
         "micro_gridstep": "pp" + "ii" + "p",
         "micro_dmaloop": "ppp" + "i" * 5 + "p",

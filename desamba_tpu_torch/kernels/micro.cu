@@ -62,10 +62,32 @@
 //   not price a serial trip (PERF.md keeps what a one-block loop of them
 //   cost); it is bound by how fast the SMs read the table's rows from
 //   their caches.
-// - rowgather/egather/colgather: a gather is native here, one load per
-//   thread; egather stages its table rows in shared memory, colgather
-//   (K6.3) reads its 2-MB table from L2, one block of 128 threads per index
-//   row and a serial loop of the trips. Every trip's load is performed.
+// - rgather_kernel (K6.3): the 2-MB table is too large to stage whole, so
+//   a block stages one column (16 KB at 4,096 rows) in a run of shared
+//   words and takes a range of the trips for every output of that column;
+//   the 128 columns x the trip ranges (tools/micro.py grid_split) take one
+//   block of 1,024 threads a SM (a second block on a SM would stage a
+//   second column for no more loads a clock), one range a column on 132
+//   SMs. A warp takes one output at a time, its 32 lanes 32
+//   consecutive trips, so a warp's 32 loads are 32 consecutive words of
+//   the column: 32 banks, no conflict. The staged column runs RG_PAD rows
+//   past its end (rows 0, 1, ... again), so a lane's RG_UNROLL loads from
+//   any start row below `rows` need no wrap: each is an LDS at an
+//   immediate offset from one address, and the start row is wrapped once
+//   per RG_UNROLL trips (an add and a mask). The warp's sum goes through
+//   __reduce_add_sync, and lane 0 adds it into the zeroed output by
+//   integer atomicAdd, exact in any order. One column a block, not a group:
+//   a block of 8 columns (one 32-byte sector of a row) fills the card with
+//   8 trip ranges a column group, so every output pays its setup and its
+//   warp sum 8 times for 1,024 trips each, and ran slower (PERF.md).
+//   Bound: the card's shared-memory rate, as for K6.2: 2^28 loads of 4 B
+//   at 33.45 TB/s take at least 0.0321 ms, twice the operations bound.
+//   Staging reads every row's 32-byte sector for one word of it (128 x
+//   4,352 sectors, 17.8 MB from L2), a few microseconds not overlapped
+//   with the trips. Every trip's gather is a load from shared memory:
+//   nothing is folded by the column's period.
+// - rowgather/egather: a gather is native here, one load per thread;
+//   egather stages its table rows in shared memory.
 // - gridstep_kernel: one block per TPU program, so its time over the grid
 //   is the card's cost of scheduling a block; with one block it is the
 //   empty kernel, the launch floor.
@@ -92,14 +114,14 @@
 // - vecwork_kernel: a grid over all SMs, the int32 elementwise rate.
 //
 // What bounds the rest: dynslice and dmaloop, L2 reads; scalarloop, the
-// launch and its atomics; colgather, one block per index row over L2
-// loads; the other gathers and vecwork, integer operations and L2 or
-// shared-memory loads. None is near the card's memory rate.
+// launch and its atomics; the other gathers and vecwork, integer
+// operations and L2 or shared-memory loads. None is near the card's memory
+// rate.
 #include <cuda_runtime.h>
 
 #define RW 128   // row width (lanes) of every table
 
-// The two kernels below (and their helpers) also compile as host C++
+// The three kernels below (and their helpers) also compile as host C++
 // (tests/cuda_host/micro_emu.cpp runs them over block_emu.h); the rest of
 // the file needs nvcc (__CUDACC__).
 
@@ -157,6 +179,76 @@ __global__ void __launch_bounds__(LG_THREADS)
       a = ((a + RW * 4u) & (size - 1)) | at;   // the next row, wrapped
     }
     atomicAdd((unsigned*)out + o, acc);
+  }
+}
+
+// out[o, l] += sum over this block's trips i of
+// tab[(idx[o, l] + i) & (rows - 1), l] for the r outputs o of column l =
+// b / splits of block b, which takes the trips [k * chunk, min(n, (k + 1) *
+// chunk)), k = b % splits; out starts at 0. Shared memory (dynamic,
+// rg_smem bytes): the column staged, its row j (j < rows + RG_PAD) at word
+// j holding tab[j & (rows - 1), l]. Lane k of a warp takes the trips
+// first + k + 32 m of the warp's output.
+#define RG_THREADS 1024
+#define RG_UNROLL 8        // a lane's loads from one address
+#define RG_PAD 256         // rows a staged column runs on: RG_UNROLL steps
+#define RG_MAX_SMEM 232448 // a block's shared memory, bytes (227 KB)
+#define RG_BATCH 8         // a thread's loads in flight while staging
+static_assert(RG_PAD == 32 * RG_UNROLL, "a lane's loads stay in the pad");
+
+static inline long long rg_smem(int rows) { return 4LL * (rows + RG_PAD); }
+// what micro_rgather launches: r >= 1 output rows, rows a power of two
+// whose staged column fits a block, and `splits` ranges of `chunk` trips
+// that cover n
+static inline bool rg_args_ok(int r, int rows, int n, int splits,
+                              int chunk) {
+  return r > 0 && pow2(rows) && rg_smem(rows) <= RG_MAX_SMEM &&
+         split_ok(n, splits, chunk);
+}
+
+__global__ void __launch_bounds__(RG_THREADS)
+    rgather_kernel(const int* __restrict__ tab, const int* __restrict__ idx,
+                   int* __restrict__ out, int rows, int r, int n, int splits,
+                   int chunk) {
+  extern __shared__ unsigned s_rg[];
+  const unsigned mask = (unsigned)(rows - 1);
+  const int l = (int)(blockIdx.x / splits);
+  const unsigned first = (blockIdx.x % splits) * (unsigned)chunk;
+  const unsigned cnt = min((unsigned)n, first + (unsigned)chunk) - first;
+  // stage the column, RG_BATCH loads in flight a thread
+  const int words = rows + RG_PAD;
+  for (int j0 = threadIdx.x; j0 < words; j0 += RG_BATCH * blockDim.x) {
+    unsigned v[RG_BATCH];
+#pragma unroll
+    for (int k = 0; k < RG_BATCH; ++k) {
+      const int j = j0 + k * (int)blockDim.x;
+      v[k] = j < words ? (unsigned)tab[(size_t)((unsigned)j & mask) * RW + l]
+                       : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < RG_BATCH; ++k) {
+      const int j = j0 + k * (int)blockDim.x;
+      if (j < words) s_rg[j] = v[k];
+    }
+  }
+  __syncthreads();
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned steps = cnt > lane ? (cnt - lane + 31) / 32 : 0;
+  const int warps = (int)(blockDim.x / 32);
+  int o = (int)(threadIdx.x / 32);
+  unsigned next = o < r ? (unsigned)idx[o * RW + l] : 0u;
+  for (; o < r; o += warps) {
+    const unsigned start = next;
+    if (o + warps < r) next = (unsigned)idx[(o + warps) * RW + l];
+    unsigned p = (start + first + lane) & mask, acc = 0;
+    for (unsigned g = steps / RG_UNROLL; g; --g) {
+#pragma unroll
+      for (int u = 0; u < RG_UNROLL; ++u) acc += s_rg[p + 32 * u];
+      p = (p + RG_PAD) & mask;
+    }
+    for (unsigned u = 0; u < steps % RG_UNROLL; ++u) acc += s_rg[p + 32 * u];
+    acc = __reduce_add_sync(0xFFFFFFFFu, acc);
+    if (lane == 0) atomicAdd((unsigned*)out + o * RW + l, acc);
   }
 }
 
@@ -331,20 +423,6 @@ __global__ void __launch_bounds__(DS_WARPS * 32)
       sum += ((const unsigned*)red[k][w / RW])[w % RW];
     atomicAdd((unsigned*)out + w, sum);
   }
-}
-
-// out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l], the table in
-// device memory; grid: one block of 128 threads per index row.
-__global__ void colgather_kernel(const int* __restrict__ tab,
-                                 const int* __restrict__ idx,
-                                 int* __restrict__ out, int rows, int n) {
-  const int l = threadIdx.x;
-  const unsigned base = (unsigned)idx[(size_t)blockIdx.x * RW + l];
-  const unsigned m = (unsigned)(rows - 1);
-  unsigned acc = 0;
-  for (unsigned i = 0; i < (unsigned)n; ++i)
-    acc += (unsigned)tab[(size_t)((base + i) & m) * RW + l];
-  out[(size_t)blockIdx.x * RW + l] = (int)acc;
 }
 
 // block i writes x[8i : 8i + 8, :] + (base + i): an (8, 128) tile is 256
@@ -560,12 +638,24 @@ extern "C" int micro_dynslice(const int* tab, const int* s, int* out, int n,
   return (int)cudaGetLastError();
 }
 
-// tab (rows, 128), idx (r, 128), out (r, 128); rows a power of two
-extern "C" int micro_colgather(const int* tab, const int* idx, int* out,
-                               int r, int rows, int n, void* stream) {
-  if (r <= 0 || !pow2(rows) || n < 0) return (int)cudaErrorInvalidValue;
-  colgather_kernel<<<r, RW, 0, (cudaStream_t)stream>>>(tab, idx, out, rows,
-                                                       n);
+// tab (rows, 128), idx (r, 128), out (r, 128) zeroed; one column staged a
+// block (rg_args_ok); `splits` ranges of `chunk` trips cover n, as for
+// dynslice, for each of the 128 columns
+extern "C" int micro_rgather(const int* tab, const int* idx, int* out, int r,
+                             int rows, int n, int splits, int chunk,
+                             void* stream) {
+  if (!rg_args_ok(r, rows, n, splits, chunk))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)rg_smem(rows);   // above 48 KB only after opting in
+  const cudaError_t e =
+      smem <= 48 * 1024
+          ? cudaSuccess
+          : cudaFuncSetAttribute(rgather_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+  if (e != cudaSuccess) return (int)e;
+  rgather_kernel<<<splits * RW, RG_THREADS, smem, (cudaStream_t)stream>>>(
+      tab, idx, out, rows, r, n, splits, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -177,6 +177,9 @@ def _run(wrapper, probe, tensors):
     from ..kernels.build import caps_lib
 
     a = a.contiguous()
+    if kernel == "s2" and a.data_ptr() % 16:
+        raise ValueError("s2: the tile must be 16-byte aligned (the kernel "
+                         "loads it 16 bytes a thread)")
     b = tensors[1].contiguous() if shape_b is not None else a
     out = torch.empty((1,) if kernel == "sum" else (8, LANES), dtype=I32,
                       device=a.device)

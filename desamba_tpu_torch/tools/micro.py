@@ -8,11 +8,11 @@ Counterpart of ``tools/pallas_micro.py``, ``tools/pallas_micro3.py`` and
 ``micro3``, ``micro2`` (one tool's sites) or ``all`` (default). Each of the
 16 sites is one Pallas kernel of those tools, computed here by a kernel of
 ``kernels/micro.cu``; it prints one line: milliseconds per call and ns per
-unit (a gathered row or element, a loop trip, a block, a copy; where
-the kernel spreads the trips over the card, as for the copy and scalar
-loops, K6.2's gather and K5.c's chain, the call's time over its trips),
-or, for the dynamic-slice sites, a throughput (trips and bytes of summed
-rows per second).
+unit (a gathered row or element, a loop trip, a block, a copy; where the
+kernel spreads the trips over the card, as for the copy and scalar loops,
+K6.2's and K6.3's gathers and K5.c's chain, the call's time over its
+trips), or, for the dynamic-slice sites, a throughput (trips and bytes of
+summed rows per second).
 
   micro    K4.1 row gather, K4.2 element gather, K4.3 dynamic-slice loop,
            K4.4 grid of 2,048 blocks, K4.5 loop of 4-KB asynchronous copies
@@ -20,8 +20,9 @@ rows per second).
            CUDA graph, by CUDA events over back-to-back eager launches, and
            host time per launch-and-synchronize), K6.1a/b
            dynamic-slice loops of 8-row and 1-row slices, K6.2 gather from a
-           32-row table, K6.3 gather from a 4,096-row table, K6.4 grid of
-           32,768 blocks, K6.5 loop of copies
+           32-row table, K6.3 gather from a 4,096-row table (a column
+           staged a block), K6.4 grid of 32,768 blocks, K6.5 loop of
+           copies
   micro2   K5.a scalar loop, K5.b aligned 8-row slices, K5.b2 single rows,
            K5.c a multiply-add chain (the TPU's one program; here an
            ordered scan of affine maps over the card), K5.d elementwise
@@ -70,10 +71,14 @@ DMA_MIN_CHUNK = 8       # fewest copies a dmaloop block takes
 SL_MIN_CHUNK = 2048     # fewest trips a scalarloop block takes (8 a thread)
 LG_MIN_CHUNK = 64       # fewest trips an lgather block takes
 OP_MIN_CHUNK = 2048     # fewest trips a oneprog block takes (8 a thread)
+RG_MIN_CHUNK = 256      # fewest trips an rgather block takes (8 a lane)
 # kernels of micro.cu whose trips are split over the card
 # (micro_resident_blocks)
 RESIDENT = {"dynslice8": 0, "dynslice1": 1, "dmaloop8": 2, "dmaloop1": 3,
             "scalarloop": 4, "lgather": 5, "oneprog": 6}
+# kernels/micro.cu rgather_kernel: the rows a staged column runs on past its
+# end, and a block's shared memory (bytes)
+RG_PAD, RG_MAX_SMEM = 256, 232448
 
 
 def _check(name, *tensors):
@@ -180,33 +185,50 @@ def colgather_plain(tab, idx, n, chunk_elems=CHUNK_ELEMS):
     return i32(acc)
 
 
-def colgather(tab, idx, n, stage):
-    """out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l].
-    ``stage`` (K6.2): the trips are split over a grid (``grid_split``),
-    each block staging the table in shared memory and adding its partial
-    sums into a zeroed output; otherwise (K6.3) one block per index row
-    reads the table from device memory."""
+def rgather_smem(rows):
+    """Shared bytes of an rgather block (kernels/micro.cu rg_smem): the
+    staged column and RG_PAD rows of it again."""
+    return 4 * (rows + RG_PAD)
+
+
+def colgather(tab, idx, n, whole):
+    """out[r, l] = sum_{i < n} tab[(idx[r, l] + i) & (rows - 1), l]. Both
+    kernels split the trips over a grid (``grid_split``), each block
+    staging in shared memory and adding its partial sums into a zeroed
+    output. ``whole`` (K6.2): a block stages the whole table (within 48 KB),
+    as many blocks as the card holds at once; otherwise (K6.3) a block
+    stages one column, the 128 columns x the trip ranges one block a SM."""
     cuda = _check("colgather", tab, idx)
     _shape("colgather", tab, None, RW)
     _shape("colgather", idx, None, RW)
-    _pow2("colgather", tab.shape[0])
-    if stage and tab.numel() * 4 > 48 * 1024:
+    rows = tab.shape[0]
+    _pow2("colgather", rows)
+    if whole and tab.numel() * 4 > 48 * 1024:
         raise ValueError("colgather: a staged table must fit 48 KB")
+    if not whole and rgather_smem(rows) > RG_MAX_SMEM:
+        raise ValueError(f"colgather: one column of {rows} rows cannot be "
+                         f"staged in a block's {RG_MAX_SMEM} bytes of shared "
+                         f"memory")
     if not cuda:
         return colgather_plain(tab, idx, n)
     tab, idx = tab.contiguous(), idx.contiguous()
-    if not stage:
-        out = torch.empty_like(idx)
-        _launch(colgather, "micro_colgather", tab, idx, out, idx.shape[0],
-                tab.shape[0], n)
-        return out
     out = torch.zeros_like(idx)
-    # the kernel's shared memory is twice the table (kernels/micro.cu)
-    blocks, chunk = grid_split(n, _resident_blocks("lgather", 8 * tab.numel()),
-                               LG_MIN_CHUNK)
-    if blocks:
-        _launch(colgather, "micro_lgather", tab, idx, out, idx.shape[0],
-                tab.shape[0], n, blocks, chunk)
+    if whole:
+        # the kernel's shared memory is twice the table (kernels/micro.cu)
+        blocks, chunk = grid_split(
+            n, _resident_blocks("lgather", 8 * tab.numel()), LG_MIN_CHUNK)
+        if blocks:
+            _launch(colgather, "micro_lgather", tab, idx, out, idx.shape[0],
+                    rows, n, blocks, chunk)
+        return out
+    # one block a SM: beside its trips a block's cost is staging its column
+    # (a 32-byte sector of every row), which a second block on the SM would
+    # pay again for no more shared-memory loads a clock
+    sms = torch.cuda.get_device_properties(tab.device).multi_processor_count
+    splits, chunk = grid_split(n, max(1, sms // RW), RG_MIN_CHUNK)
+    if splits:
+        _launch(colgather, "micro_rgather", tab, idx, out, idx.shape[0], rows,
+                n, splits, chunk)
     return out
 
 
@@ -553,17 +575,17 @@ def sites(x, sizes=None):
              "tools/pallas_micro3.py:92",
              f"dyn-slice {nm} x{z['N3']}, row 0 summed", "trip", tab,
              z["N3"], 7, 1, kr - 9, sl, 1)
-    for key, name, replaces, label, t_, i_, n, stage in (
+    for key, name, replaces, label, t_, i_, n, whole in (
             ("K6.2", "micro3_lgather", "tools/pallas_micro3.py:118",
              f"gather (8x{RW} from {z['GK']}x{RW}, shared) x{z['GR']}",
              x["tabg"], x["idxg"], z["GR"], True),
             ("K6.3", "micro3_rgather", "tools/pallas_micro3.py:152",
-             f"gather ({z['RGN']}x{RW} from {kr}x{RW}) x{z['RGR']}",
-             tab, x["idxr"], z["RGR"], False)):
+             f"gather ({z['RGN']}x{RW} from {kr}x{RW}, a column shared) "
+             f"x{z['RGR']}", tab, x["idxr"], z["RGR"], False)):
         add(key, "micro3", name, replaces, label, "element", n * i_.numel(),
-            lambda t_=t_, i_=i_, n=n, stage=stage: colgather(t_, i_, n, stage),
+            lambda t_=t_, i_=i_, n=n, whole=whole: colgather(t_, i_, n, whole),
             lambda t_=t_, i_=i_, n=n: colgather_plain(t_, i_, n),
-            None if stage else (lambda t_=t_, i_=i_, n=n: colgather_plain(
+            None if whole else (lambda t_=t_, i_=i_, n=n: colgather_plain(
                 t_, i_, n, chunk_elems=max(1, n) * i_.numel())),
             n * i_.numel(),
             lambda t_=t_, i_=i_, n=n: 8 * i_.numel() + 4 * (

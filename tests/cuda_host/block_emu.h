@@ -9,10 +9,14 @@
 // makes and another reads without a barrier between them shows as a
 // different value in one of the two orders, and a barrier that not every
 // thread reaches, or two different barriers reached at once, stops the run
-// with an error. Blocks run one after another, so atomics and fences are
-// plain host operations. The block size is the caller's: each thread has a
-// STACK-byte stack, so a test runs the kernel at a small block. warp_emu.h
-// is the stand-in for warp collectives; the two are not used together.
+// with an error. One warp collective is here too, __reduce_add_sync over
+// the full mask: a warp's lanes (threads 32 w .. 32 w + 31) meet there while
+// the other warps run on, and lanes of one warp that reach different
+// collectives, or a barrier and a collective, stop the run. Blocks run one
+// after another, so atomics and fences are plain host operations. The
+// block size is the caller's: each thread has a STACK-byte stack, so a test
+// runs the kernel at a small block. warp_emu.h is the stand-in for the
+// other warp collectives; the two are not used together.
 #pragma once
 #define CUDA_HOST_BLOCK_EMU 1
 #include <ucontext.h>
@@ -38,7 +42,8 @@ namespace bemu {
 
 constexpr size_t STACK = 64 * 1024;
 
-enum Kind { NONE, SYNC, SYNC_AND };
+// NONE: running; SYNC, SYNC_AND: block barriers; WARP_ADD: the warp sum
+enum Kind { NONE, SYNC, SYNC_AND, WARP_ADD };
 
 struct State {
   int cur = 0;                      // the running thread
@@ -47,8 +52,9 @@ struct State {
   ucontext_t sched;
   std::vector<ucontext_t> ctx;
   std::vector<char> stacks, done;
-  std::vector<Kind> at;             // the barrier each thread waits at
-  std::vector<int> in;              // each thread's predicate there
+  std::vector<Kind> at;             // where each thread waits
+  std::vector<unsigned> in;         // each thread's predicate or value there
+  std::vector<unsigned> out;        // each thread's answer from its warp
   int result = 0;                   // the last barrier's answer
   std::function<void()> body;
 };
@@ -59,14 +65,35 @@ inline void thread_main() {
   S.done[S.cur] = 1;                // uc_link returns to the scheduler
 }
 
-// The calling thread waits at a barrier with predicate v; returns the
-// barrier's answer once every thread of the block has arrived.
-inline int arrive(Kind k, int v) {
+// The calling thread waits at a barrier or a warp collective with input v;
+// returns the answer once every thread of the block (of the warp) has
+// arrived.
+inline unsigned arrive(Kind k, unsigned v) {
   const int t = S.cur;
   S.in[t] = v;
   S.at[t] = k;
   swapcontext(&S.ctx[t], &S.sched);
-  return S.result;
+  return k == WARP_ADD ? S.out[t] : (unsigned)S.result;
+}
+
+// Release every warp whose lanes all wait in a warp collective; whether
+// one was.
+inline bool release_warps(int threads) {
+  bool any = false;
+  for (int lo = 0; lo < threads; lo += 32) {
+    const int hi = lo + 32 < threads ? lo + 32 : threads;
+    bool all = true;
+    for (int t = lo; t < hi; ++t) all &= !S.done[t] && S.at[t] == WARP_ADD;
+    if (!all) continue;
+    unsigned sum = 0;
+    for (int t = lo; t < hi; ++t) sum += S.in[t];
+    for (int t = lo; t < hi; ++t) {
+      S.out[t] = sum;
+      S.at[t] = NONE;
+    }
+    any = true;
+  }
+  return any;
 }
 
 // Run block b of a grid of `blocks`, of `threads` threads each. Returns
@@ -83,6 +110,7 @@ inline const char* run_block(int b, int threads, bool reverse,
   S.done.assign(threads, 0);
   S.at.assign(threads, NONE);
   S.in.assign(threads, 0);
+  S.out.assign(threads, 0);
   for (int t = 0; t < threads; ++t) {
     S.tid[t] = emu_dim3{(unsigned)t, 0, 0};
     getcontext(&S.ctx[t]);
@@ -92,13 +120,20 @@ inline const char* run_block(int b, int threads, bool reverse,
     makecontext(&S.ctx[t], thread_main, 0);
   }
   for (;;) {
+    // every running thread runs until it waits or leaves, in thread order
     for (int i = 0; i < threads; ++i) {
       S.cur = reverse ? threads - 1 - i : i;
-      swapcontext(&S.sched, &S.ctx[S.cur]);
+      if (!S.done[S.cur] && S.at[S.cur] == NONE)
+        swapcontext(&S.sched, &S.ctx[S.cur]);
     }
+    if (release_warps(threads)) continue;
     int n_done = 0;
     for (int t = 0; t < threads; ++t) n_done += S.done[t];
     if (n_done == threads) return nullptr;
+    for (int t = 0; t < threads; ++t)
+      if (S.at[t] == WARP_ADD)
+        return "the lanes of a warp wait in different collectives, or some "
+               "left the kernel";
     if (n_done != 0)
       return "some threads left the kernel while others wait at a barrier";
     for (int t = 1; t < threads; ++t)
@@ -107,6 +142,7 @@ inline const char* run_block(int b, int threads, bool reverse,
     int all = 1;
     for (int t = 0; t < threads; ++t) all &= S.in[t] != 0;
     S.result = S.at[0] == SYNC_AND ? all : 0;
+    for (int t = 0; t < threads; ++t) S.at[t] = NONE;
   }
 }
 
@@ -148,5 +184,10 @@ inline void* __cvta_shared_to_generic(size_t a) {
 
 inline void __syncthreads() { bemu::arrive(bemu::SYNC, 1); }
 inline int __syncthreads_and(int pred) {
-  return bemu::arrive(bemu::SYNC_AND, pred);
+  return (int)bemu::arrive(bemu::SYNC_AND, pred != 0);
+}
+// the full warp's sum (a block size that is not a multiple of 32 makes its
+// last warp short: its lanes' sum)
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  return bemu::arrive(bemu::WARP_ADD, v);
 }

@@ -1,20 +1,24 @@
-// The two kernels of kernels/micro.cu that compile as host C++
-// (lgather_kernel, K6.2, and oneprog_kernel, K5.c) over block_emu.h:
-// micro_emu_lgather and micro_emu_oneprog run each kernel's grid on the
-// CPU, block by block, with the arguments of its launcher (no stream), the
-// block size and an order: `reverse` runs the blocks from the last to the
-// first (so another block finishes last) and each block's threads n-1..0
-// between barriers. Each returns 0, or 1 with the reason in
-// micro_emu_error.
+// The three kernels of kernels/micro.cu that compile as host C++
+// (lgather_kernel, K6.2, rgather_kernel, K6.3, and oneprog_kernel, K5.c)
+// over block_emu.h: micro_emu_lgather, micro_emu_rgather and
+// micro_emu_oneprog run each kernel's grid on the CPU, block by block, with
+// the arguments of its launcher (no stream), the block size and an order:
+// `reverse` runs the blocks from the last to the first (so another block
+// finishes last) and each block's threads n-1..0 between barriers and warp
+// collectives. Each returns 0, or 1 with the reason in micro_emu_error.
 #include "block_emu.h"
 
 // lgather's shared memory: twice the largest table micro_lgather takes, 64
 // rows (a power of two within 48 KB)
 alignas(16) int s_lg[2 * 64 * 128];
+// rgather's: the most a block may take (227 KB)
+alignas(16) unsigned s_rg[232448 / 4];
 // oneprog's: A and B of each thread's map, and the last-block flag
 unsigned s_op[2 * 256 + 1];
 
 #include "micro.cu"
+
+static_assert(sizeof(s_rg) == RG_MAX_SMEM, "rgather's largest launch");
 
 static_assert(sizeof(s_op) == (2 * OP_THREADS + 1) * sizeof(unsigned),
               "oneprog's launch");
@@ -52,6 +56,32 @@ extern "C" int micro_emu_lgather(const int* tab, const int* idx, int* out,
       return 1;
   }
   return 0;
+}
+
+// tab (rows, 128), idx (r, 128), out (r, 128) zeroed; what micro_rgather
+// takes (rg_args_ok), at `threads` a block (a multiple of 32)
+extern "C" int micro_emu_rgather(const int* tab, const int* idx, int* out,
+                                 int r, int rows, int n, int splits,
+                                 int chunk, int threads, int reverse) {
+  if (!rg_args_ok(r, rows, n, splits, chunk) || threads <= 0 ||
+      threads > RG_THREADS || threads % 32) {
+    last_error = "argument out of range";
+    return 1;
+  }
+  const int blocks = splits * RW;
+  for (int b = 0; b < blocks; ++b) {
+    std::memset(s_rg, 0xA5, rg_smem(rows));   // shared memory starts undefined
+    if (run(b, blocks, threads, reverse, [&] {
+          rgather_kernel(tab, idx, out, rows, r, n, splits, chunk);
+        }))
+      return 1;
+  }
+  return 0;
+}
+
+// whether micro_rgather stages a column of a `rows`-row table
+extern "C" int micro_emu_rgather_fits(int rows) {
+  return rg_args_ok(1, rows, 1, 1, 1);
 }
 
 // x and out (8, 128); scratch (1 + 2 * blocks,) zeroed; the split as for

@@ -174,6 +174,25 @@ def test_probe_matches_its_pallas_body(name, variant):
     assert site.startswith("tools/pallas_caps.py:")
 
 
+@pytest.mark.parametrize("s", [(1 << 31) - 1, -(1 << 31)],
+                         ids=["int32_max", "int32_min"])
+def test_scalar_block_wraps_at_the_int32_extremes(s):
+    """K7.3 (``scalar_block``, the tile plus a (1, 1) scalar) == the
+    JAX ``f_s2`` in interpret mode at either int32 extreme of the scalar,
+    on the edge tile with both extremes, -1 and 0 in it: the sum wraps
+    (some exact sums leave int32) and both agree bit for bit."""
+    tile = _inputs("edges")["tab8"].copy()
+    tile[0, :4] = [(1 << 31) - 1, -(1 << 31), -1, 0]
+    scalar = np.array([[s]], np.int32)
+    got = caps.scalar_block(torch.from_numpy(tile), torch.from_numpy(scalar))
+    exp = np.asarray(PALLAS["(1,1) scalar operand"](jnp.asarray(tile),
+                                                    jnp.asarray(scalar)))
+    exact = tile.astype(np.int64) + s
+    assert ((exact > (1 << 31) - 1) | (exact < -(1 << 31))).any()
+    assert np.array_equal(got.numpy(), exp)
+    assert np.array_equal(exp, exact.astype(np.int32))
+
+
 def test_entry_point_on_the_cpu_prints_ok_per_probe(capsys):
     res = caps.main(["--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()

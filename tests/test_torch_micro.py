@@ -13,11 +13,12 @@ the port's ``make_inputs`` from a seed, so the tables the tools left at zero
 carry values, the start scalar is not 0 and can be negative, and the
 elementwise input has negative words (which pins the shift by 32 and more).
 
-The two kernels of ``kernels/micro.cu`` that compile as host C++ (K6.2's
-``lgather_kernel`` and K5.c's ``oneprog_kernel``) also run here from their
-own source, through ``tests/cuda_host/micro_emu.cpp`` over ``block_emu.h``
-(a block's threads as coroutines, in both orders between barriers), against
-the plain versions; and the splits of their work (trips over blocks and
+The three kernels of ``kernels/micro.cu`` that compile as host C++ (K6.2's
+``lgather_kernel``, K6.3's ``rgather_kernel`` and K5.c's
+``oneprog_kernel``) also run here from their own source, through
+``tests/cuda_host/micro_emu.cpp`` over ``block_emu.h`` (a block's threads as
+coroutines, in both orders between barriers and warp sums), against the
+plain versions; and the splits of their work (trips over blocks, lanes and
 threads, affine maps composed in trip order) are restated in numpy.
 """
 import ctypes
@@ -613,8 +614,9 @@ EMU_N = [0, 1, 31, 32, 33, 3001]
 
 @pytest.fixture(scope="module")
 def micro_emu(tmp_path_factory):
-    """lgather_kernel and oneprog_kernel of kernels/micro.cu compiled as
-    host C++ over tests/cuda_host/block_emu.h, loaded with ctypes."""
+    """lgather_kernel, rgather_kernel and oneprog_kernel of kernels/micro.cu
+    compiled as host C++ over tests/cuda_host/block_emu.h, loaded with
+    ctypes."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to emulate the kernels with")
@@ -625,8 +627,12 @@ def micro_emu(tmp_path_factory):
                     "-o", so], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     lib.micro_emu_lgather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.micro_emu_rgather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.micro_emu_rgather_fits.argtypes = [ctypes.c_int]
     lib.micro_emu_oneprog.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     lib.micro_emu_lgather.restype = lib.micro_emu_oneprog.restype = ctypes.c_int
+    lib.micro_emu_rgather.restype = ctypes.c_int
+    lib.micro_emu_rgather_fits.restype = ctypes.c_int
     lib.micro_emu_error.restype = ctypes.c_char_p
     return lib
 
@@ -686,6 +692,152 @@ def test_lgather_kernel_source_matches_plain(micro_emu, n, reverse):
         exact = sum(tab.astype(np.int64)[(idx.astype(np.int64) + i) % GK,
                                          np.arange(RW)] for i in range(GK))
         assert (np.abs(exact) >= 1 << 31).any()
+
+
+def _rgather_inputs(rows, seed=19):
+    """K6.3's shapes cut to three index rows, from a seed: a (rows, 128)
+    table over the whole int32 range (so that sums wrap) and (3, 128) start
+    rows inside the table, with negative ones and both int32 extremes in
+    row 0."""
+    rng = np.random.default_rng([seed, rows])
+    tab = rng.integers(I32_MIN, I32_MAX, (rows, RW), dtype=np.int64)
+    idx = rng.integers(0, rows, (3, RW), dtype=np.int64)
+    idx[0, :6] = [-1, -rows - 3, I32_MIN, I32_MAX, I32_MAX - 3, I32_MIN + 5]
+    return tab.astype(np.int32), idx.astype(np.int32)
+
+
+def _emu_rgather(lib, tab, idx, n, max_blocks, min_chunk, threads, reverse):
+    """The kernel's grid as the wrapper splits it on the CPU, the trips of
+    each of the 128 columns split by ``grid_split`` at ``max_blocks`` (the
+    card's SMs) // 128: (out, blocks)."""
+    splits, chunk = micro.grid_split(n, max(1, max_blocks // RW), min_chunk)
+    out = np.zeros(idx.shape, np.int32)            # the wrapper zeroes it
+    if splits:
+        rc = lib.micro_emu_rgather(tab.ctypes.data, idx.ctypes.data,
+                                   out.ctypes.data, idx.shape[0],
+                                   tab.shape[0], n, splits, chunk, threads,
+                                   int(reverse))
+        assert rc == 0, lib.micro_emu_error().decode()
+    return out, splits * RW
+
+
+RG_ROWS = [64, 4096]
+
+
+@pytest.mark.parametrize("reverse", [False, True],
+                         ids=["threads_up", "threads_down"])
+@pytest.mark.parametrize("wraps", ["1", "31", "33", "rows-1", "rows+5",
+                                   "2rows+3"])
+@pytest.mark.parametrize("rows", RG_ROWS)
+def test_rgather_kernel_source_matches_plain(micro_emu, rows, wraps,
+                                             reverse):
+    """kernels/micro.cu rgather_kernel (K6.3) itself, on the CPU: the
+    wrapper's grid on the card's 132 SMs (one trip range a column) and
+    several trip ranges a column (down to ranges of 7 trips,
+    so that a lane takes no trip or ends inside its unrolled group), at the
+    launcher's block size and at one, two and three warps (fewer warps
+    than the outputs of a column, so a warp takes several), each block's
+    threads in one order and then the other, summed into a zeroed output,
+    equal the plain version bit for bit, negative and extreme start rows
+    included. No n is a whole number of wraps of the column."""
+    n = {"1": 1, "31": 31, "33": 33, "rows-1": rows - 1,
+         "rows+5": rows + 5, "2rows+3": 2 * rows + 3}[wraps]
+    tab, idx = _rgather_inputs(rows)
+    exp = micro.colgather_plain(torch.from_numpy(tab), torch.from_numpy(idx),
+                                n).numpy()
+    for max_blocks, min_chunk, threads in (
+            (132, micro.RG_MIN_CHUNK, 64),            # the wrapper's split
+            (132, micro.RG_MIN_CHUNK, _micro_define("RG_THREADS")),
+            (640, 7, 96), (1000, 16, 32), (600, 40, 64)):
+        got, blocks = _emu_rgather(micro_emu, tab, idx, n, max_blocks,
+                                   min_chunk, threads, reverse)
+        assert np.array_equal(got, exp), (
+            f"n {n}, {blocks} blocks of {threads} threads: "
+            f"{int((got != exp).sum())} of {exp.size} sums differ")
+    assert n % rows and len(np.unique(exp)) > 1
+    if n >= rows:     # the sums wrap int32: a whole wrap is a column's sum
+        assert (np.abs(tab.astype(np.int64).sum(0)) >= 1 << 31).any()
+
+
+@pytest.mark.parametrize("n, max_blocks, rows", [
+    (0, 132, 4096),             # no trips: no block, no launch
+    (1, 132, 4096),             # one trip, one lane
+    (255, 132, 4096),           # fewer trips than a block's least share
+    (8192, 132, 4096),          # the tool's size: one range a column
+    (8192, 264, 4096),          # a card of 264 SMs: two ranges
+    (3001, 640, 64),            # a prime: a short last range
+])
+def test_rgather_split_sums_to_the_whole_loop(n, max_blocks, rows):
+    """rgather's grid (``grid_split`` at RG_MIN_CHUNK for each of the 128
+    columns, one block a SM): every (output, trip) pair in exactly one block and one lane's
+    loads (lane k takes the range's trips k, k + 32, ...: RG_UNROLL at a
+    time from one start row below ``rows``, each inside the column's RG_PAD
+    staged rows past its end, then the rest), and every output of a column
+    in exactly one warp of a block (warp w takes outputs w, w + warps,
+    ...), restating kernels/micro.cu rgather_kernel; and the block partial
+    sums (the plain version over each range's trips, its start rows moved
+    on by the range's first trip) add up to the whole loop's, which is what
+    the blocks' atomicAdds into the zeroed output compute."""
+    unroll = _micro_define("RG_UNROLL")
+    assert micro.RG_PAD == 32 * unroll == _micro_define("RG_PAD")
+    spans = _check_split(n, max(1, max_blocks // RW), micro.RG_MIN_CHUNK)
+    assert len(spans) * RW <= max(max_blocks, RW)
+    tab, idx = (torch.from_numpy(a) for a in _rgather_inputs(rows))
+    seen = np.zeros(n, np.int64)
+    for first, last in spans:
+        cnt = last - first
+        for lane in range(32):
+            steps = -(-(cnt - lane) // 32) if cnt > lane else 0
+            k = 0
+            for _ in range(steps // unroll):
+                # a group's loads: rows p + 32 u, p < rows, u < RG_UNROLL
+                assert (rows - 1) + 32 * (unroll - 1) < rows + micro.RG_PAD
+                seen[first + lane + 32 * k:
+                     first + lane + 32 * (k + unroll):32] += 1
+                k += unroll
+            seen[first + lane + 32 * k:
+                 first + lane + 32 * (k + steps % unroll):32] += 1
+    assert (seen == 1).all()
+    warps = _micro_define("RG_THREADS") // 32
+    owners = sorted(o for w in range(warps)
+                    for o in range(w, idx.shape[0], warps))
+    assert owners == list(range(idx.shape[0]))
+    total = torch.zeros(idx.shape, dtype=torch.int64)
+    for first, last in spans:
+        total += micro.colgather_plain(tab, micro.i32(idx.long() + first),
+                                       last - first)
+    assert torch.equal(micro.i32(total), micro.colgather_plain(tab, idx, n))
+
+
+def test_rgather_refuses_a_column_it_cannot_stage(micro_emu):
+    """The wrapper and the emulated launcher take the same tables: a
+    column of up to 32,768 rows (and its RG_PAD rows again) fits a block's
+    227 KB of shared memory, one of 65,536 rows does not, and both refuse
+    it, the wrapper on the CPU too."""
+    assert micro.RG_MAX_SMEM == _micro_define("RG_MAX_SMEM")
+    for k in range(18):
+        rows = 1 << k
+        fits = micro.rgather_smem(rows) <= micro.RG_MAX_SMEM
+        assert micro_emu.micro_emu_rgather_fits(rows) == fits
+        assert fits == (rows <= 1 << 15)
+    big = torch.zeros(1 << 16, RW, dtype=torch.int32)
+    idx = torch.zeros(2, RW, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cannot be staged"):
+        micro.colgather(big, idx, 3, False)
+    tab, idx_np = _rgather_inputs(64)
+    out = np.zeros(idx_np.shape, np.int32)
+    for rows, n, splits, chunk, threads in (
+            (1 << 16, 3, 1, 3, 64),       # one column does not fit
+            (48, 3, 1, 3, 64),            # rows not a power of two
+            (64, 3, 2, 3, 64),            # an empty last range
+            (64, 9, 1, 8, 64),            # a trip left over
+            (64, 3, 1, 3, 48),            # a short warp
+            (64, 3, 1, 3, 2048)):         # over the launcher's block
+        assert micro_emu.micro_emu_rgather(
+            tab.ctypes.data, idx_np.ctypes.data, out.ctypes.data, 3, rows, n,
+            splits, chunk, threads, 0) == 1
+        assert b"out of range" in micro_emu.micro_emu_error()
+    assert not out.any()
 
 
 def _emu_oneprog(lib, x, n, max_blocks, min_chunk, threads, reverse):
