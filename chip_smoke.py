@@ -16,7 +16,10 @@ and a C compiler. Phases:
 3. end to end: DeviceClassifier(device="cuda") over every read, its SAM
    byte-equal to the gold oracle's (ClassifyEngine) on the same reads,
    with the slow ladders and the M3 path both taken; the kernels' launch
-   counts are zeroed just before and read just after this run;
+   counts are zeroed just before and read just after this run, and so is
+   the eager fast ladder's count of runs: the run fails if the rescore
+   kernel (K1) or the fast-ladder kernel (B2) was not launched, or if the
+   eager fast ladder ran on the card;
 4. long reads: a new DeviceClassifier over one batch of 64 reads, the
    first 62 of phase 3's and two of at least 250 kb (a chimera of whole
    references end to end, and a span of one reference inside random
@@ -32,6 +35,16 @@ and a C compiler. Phases:
    flag columns), both timed; per width, the rows with chains, the steps
    in all and in the longest walk, the shared memory a block and
    ``ptxas``'s registers, stack and spills;
+5b. B2, the fast ladder: the kernel's wrapper on the fast-ladder calls of
+   phase 3's first batch (one a group of island lengths) and on the run's
+   first re-dispatch at the full SP_SET tier (``iv_cap=None``) where there
+   was one, and on the first batch's last call again at ``iv_cap=1``
+   (hot-tier overflows), each bit-equal (tolerance 0: packed anchors, info
+   rows, pack overflow) to the eager ``fast_ladder`` on the card, its
+   longest lane's trips equal to the eager loop's trip count; per call the
+   lanes and NB, the kernel's ms by CUDA events (launch and pack), the
+   plain version's ms and trips, the lanes' mean trips and the bound; the
+   record sums the first batch's calls;
 6. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
    at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
    launches the compare-count kernel (K3) on a sorted table (the 1-lane
@@ -362,6 +375,28 @@ def rescore_bytes(host, rows, spans):
     return n
 
 
+def ladder_bytes(lane_args, trips, info, l_ek, a_cap, pack_cap):
+    """Bytes B2's function must move on one call (numpy inputs, ``trips``
+    the kernel's trips a lane): the lane arguments; for the lanes that
+    probe, the read codes under their seed spans (the e-kmers of each
+    island, a byte a char, the union over the lanes of a read) and a 13-mer
+    value a trip (per read, the most trips of one of its lanes: a lane's
+    probes are at distinct positions); the packed anchor rows written (13
+    int32 each, at most pack_cap) and the info rows. Index words are not
+    counted, so it is a lower bound."""
+    on = (lane_args[7] != 0) & (trips > 0)
+    spans = collections.defaultdict(list)
+    most = collections.Counter()
+    for r, b, so, sl, n in zip(*(lane_args[k, on] for k in (0, 1, 5, 6)),
+                               trips[on]):
+        spans[int(r)].append((int(b + so), int(b + so + sl + l_ek - 1)))
+        most[int(r)] = max(most[int(r)], int(n))
+    chars = sum(span_words(v) for v in spans.values())
+    rows = min(int(np.minimum(info[:, 1], a_cap).sum()), pack_cap)
+    return (lane_args.size * 4 + chars + 4 * sum(most.values()) + 52 * rows
+            + info.size * 4)
+
+
 def cmpcount_ops(B, P, K, t_sorted):
     """The least comparisons K3's function needs on these shapes: on a
     sorted table, one binary search per query (ceil(log2(K + 1)) steps;
@@ -435,9 +470,10 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from desamba_tpu_torch.engine.device import plops
+    from desamba_tpu_torch.engine.device import ladder, plops
     from desamba_tpu_torch.engine.device import rescore_pl as trp
-    from desamba_tpu_torch.engine.device.classifier import DeviceClassifier
+    from desamba_tpu_torch.engine.device.classifier import (A_CAP,
+                                                            DeviceClassifier)
     from desamba_tpu_torch.engine.gold.classify import ClassifyEngine, Options
     from desamba_tpu_torch.index.build import build_index
     from desamba_tpu_torch.io.sam import format_result
@@ -460,6 +496,8 @@ def main():
     log(f"kernel build {time.perf_counter() - t0:.1f} s")
     k1_ptxas = ptxas_lines(built["rescore.cu"], "rescore_kernel")
     log(f"ptxas rescore_kernel: {k1_ptxas}")
+    b2_ptxas = ptxas_lines(built["ladder.cu"], "fast_ladder_kernel")
+    log(f"ptxas fast_ladder_kernel: {b2_ptxas}")
 
     # ---- 2. data ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -481,32 +519,47 @@ def main():
 
     # ---- 3. end to end ----------------------------------------------------
     opts = Options()
-    kernels = {"rescore": trp.rescore_cuda, "cmpcount": compare_count}
+    kernels = {"rescore": trp.rescore_cuda, "cmpcount": compare_count,
+               "fast_ladder": ladder.fast_ladder_cuda}
     failures = []
 
     def classify(batch, what):
-        """A new DeviceClassifier over ``batch``, the kernels' counts zeroed
-        just before and read just after, its SAM held against gold's.
-        Returns (classifier, first rescore input per anchor width,
-        launches)."""
+        """A new DeviceClassifier over ``batch``, the kernels' counts (and
+        the eager fast ladder's runs) zeroed just before and read just
+        after, its SAM held against gold's. Returns (classifier, first
+        rescore input per anchor width, launches, [(iv_cap, arguments)] of
+        the first batch's fast-ladder calls and the first one at the full
+        SP_SET tier)."""
         clf = DeviceClassifier(idx, opts, "cuda")
-        captured = {}
-        orig = clf._k_rescore
+        captured, ladder_calls = {}, []
+        orig, orig_ladder = clf._k_rescore, clf._k_ladder
 
         def capture(inp):
             captured.setdefault(int(inp.anchors.shape[1]), inp)
             return orig(inp)
 
-        clf._k_rescore = capture
+        def capture_ladder(kind, *a, iv_cap=ladder.IV_HOT):
+            if kind == "fast":
+                # a[0] is the batch's codes_fr
+                first = not ladder_calls or ladder_calls[0][1][0] is a[0]
+                if (iv_cap == ladder.IV_HOT and first) or (
+                        iv_cap is None
+                        and all(c is not None for c, _ in ladder_calls)):
+                    ladder_calls.append((iv_cap, a))
+            return orig_ladder(kind, *a, iv_cap=iv_cap)
+
+        clf._k_rescore, clf._k_ladder = capture, capture_ladder
         for k in kernels.values():
             k.launches = 0
+        ladder.fast_ladder.runs = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = list(clf.classify_reads(batch))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}
-        clf._k_rescore = orig
+        eager_runs = ladder.fast_ladder.runs
+        clf._k_rescore, clf._k_ladder = orig, orig_ladder
         got = "".join(format_result(r, idx.ref_name, opts) for r in res)
         log(f"{what}: {len(batch)} reads in {wall:.3f} s = "
             f"{len(batch) / wall:.1f} reads/s on {kind}")
@@ -526,12 +579,18 @@ def main():
         else:
             log(f"{what}: SAM byte-equal to gold: {len(got.splitlines())} "
                 f"lines")
-        if launches["rescore"] <= 0:
-            failures.append(f"kernel rescore was not launched by the {what} "
-                            f"run")
-        return clf, captured, launches
+        for name in ("rescore", "fast_ladder"):
+            if launches[name] <= 0:
+                failures.append(f"kernel {name} was not launched by the "
+                                f"{what} run")
+        if eager_runs:
+            failures.append(f"the eager fast ladder ran {eager_runs} times "
+                            f"on the card in the {what} run")
+        log(f"{what} launches: " + json.dumps(launches)
+            + f"; eager fast-ladder runs {eager_runs}")
+        return clf, captured, launches, ladder_calls
 
-    dev, captured, launches = classify(reads, "end to end")
+    dev, captured, launches, ladder_calls = classify(reads, "end to end")
     fb = dev.fallback_stats()
     if fb["slow_path_reads"] <= 0 or fb["m3_path_reads"] <= 0:
         failures.append("the slow path or the M3 path was not taken")
@@ -597,9 +656,7 @@ def main():
         return recs
 
     # ---- 4. long reads ------------------------------------------------------
-    long_clf, long_captured, long_launches = classify(long_batch,
-                                                      "long reads")
-    log("long reads launches: " + json.dumps(long_launches))
+    long_clf, long_captured, _, _ = classify(long_batch, "long reads")
     long_recs = check_k1("long reads", long_clf, long_captured)
     if not long_recs or min(r["K"] for r in long_recs) < LONG_READ:
         failures.append("long reads: no rescore batch at a long read's width")
@@ -625,6 +682,87 @@ def main():
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
             "library_ms": None, "library_eager_ms": None})
+
+    # ---- 5b. B2: the fast ladder on the main path's calls --------------------
+    def check_b2(tag, a, iv_cap):
+        """The kernel and the eager fast ladder on one captured call's
+        arguments at ``iv_cap``: compared (tolerance 0), timed, bounded."""
+        codes_fr, buf_len, pre13, lane_args, NB = a
+        dix = dev.dix
+        args = (dev.ixr, dix.fm_blocks, dix.rank, dix.hash13, codes_fr,
+                buf_len, pre13, dix.q_mem, dix.q_lv, lane_args)
+        kw = dict(l_ek=idx.len_e_kmer, a_cap=A_CAP, pack_cap=2 * NB,
+                  iv_cap=iv_cap)
+        got = ladder.fast_ladder_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        trips = ladder.fast_ladder_cuda.trips.cpu().numpy()
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        exp = ladder.fast_ladder(*args, **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        ms = cuda_ms(lambda: ladder.fast_ladder_cuda(*args, **kw), 5)
+        err = max(int((got[0].long() - exp[0].long()).abs().max()),
+                  int((got[1].long() - exp[1].long()).abs().max()),
+                  int(got[2] != exp[2]))
+        info = exp[1].cpu().numpy()
+        nbytes = ladder_bytes(lane_args.cpu().numpy(), trips, info,
+                              idx.len_e_kmer, A_CAP, 2 * NB)
+        bnd = bound(nbytes, 0)
+        lanes = int((lane_args[7] != 0).sum())
+        log(f"fast ladder {tag} (iv_cap {iv_cap}): {lanes} lanes, NB {NB}: "
+            f"kernel {ms:.4f} ms (launch and pack, by events), plain "
+            f"{plain_ms:.1f} ms over {ladder.fast_ladder.trips} trips; lanes' "
+            f"trips: longest {int(trips.max())}, mean over the lanes "
+            f"{trips[:lanes].mean():.3f}; bound {bnd[0]:.6f} ms ({bnd[1]}; "
+            f"{nbytes} bytes, index words not counted); "
+            f"{int(info[:, 1].sum())} anchors, {int(info[:, 3].sum())} lanes "
+            f"with an SP_SET overflow; max_abs_err {err}")
+        if err != 0:
+            failures.append(f"fast ladder {tag} (iv_cap {iv_cap}): kernel "
+                            f"differs from the eager version: max_abs_err "
+                            f"{err}")
+        if int(trips.max()) != ladder.fast_ladder.trips:
+            failures.append(f"fast ladder {tag}: longest lane {trips.max()} "
+                            f"trips, eager loop {ladder.fast_ladder.trips}")
+        if ms < bnd[0]:
+            failures.append(f"fast ladder {tag} beat its bound: {ms} < "
+                            f"{bnd[0]} ms")
+        return dict(ms=ms, plain_ms=plain_ms, err=err, nbytes=nbytes,
+                    ovf=int(info[:, 3].sum()))
+
+    batch1 = [a for c, a in ladder_calls if c is not None]
+    if not batch1:
+        failures.append("no fast-ladder call was captured")
+    else:
+        b2 = [check_b2(f"batch 1 call {i + 1}", a, ladder.IV_HOT)
+              for i, a in enumerate(batch1)]
+        full = [a for c, a in ladder_calls if c is None]
+        if full:
+            check_b2("first full-tier re-dispatch", full[0], None)
+        else:
+            log("fast ladder: no full-tier re-dispatch in the main run")
+        forced = check_b2(f"batch 1 call {len(batch1)}", batch1[-1], 1)
+        if forced["ovf"] <= 0:
+            failures.append("fast ladder at iv_cap=1 never overflowed")
+        nbytes = sum(r["nbytes"] for r in b2)
+        bms, by = bound(nbytes, 0)
+        log(f"fast ladder, batch 1 ({len(b2)} calls): kernel "
+            f"{sum(r['ms'] for r in b2):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in b2):.1f} ms, bound {bms:.6f} ms "
+            f"({by}; {nbytes} bytes); ptxas {b2_ptxas}")
+        records.append({
+            "name": "fast_ladder", "route": "cuda",
+            "source": "desamba_tpu_torch/kernels/ladder.cu",
+            "replaces": "desamba_tpu/engine/device/ladder.py:98",
+            "launches": launches["fast_ladder"],
+            "max_abs_err": max(r["err"] for r in b2 + [forced]),
+            "ms": sum(r["ms"] for r in b2),
+            "plain_ms": sum(r["plain_ms"] for r in b2),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "library_eager_ms": None})
+    del ladder_calls, batch1
 
     # ---- 6. gather bench: the compare-count kernel (K3) ---------------------
     dev0 = torch.device("cuda")
@@ -880,8 +1018,8 @@ def main():
               if r["library_ms"] is not None and r["ms"] > r["library_ms"]]
     log("kernels slower than their library call in a graph: "
         + (", ".join(slower) or "none"))
-    if len(records) != 24:
-        failures.append(f"{len(records)} kernel records, not 24")
+    if len(records) != 25:
+        failures.append(f"{len(records)} kernel records, not 25")
     log(json.dumps({"kernels": records}))
     if failures:
         for f in failures:

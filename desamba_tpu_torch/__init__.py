@@ -41,6 +41,7 @@ at first use (``kernels/build.py``): the per-read 9-mer SDP rescore
 (``rescore.cu``), the compare-count lookup (``cmpcount.cu``, wrapped by
 ``tools/cmpcount.py``), the tile helpers (``plops.cuh`` and its harness
 ``plops.cu``, wrapped by ``engine/device/plops.py``), the primitive benches
-(``micro.cu``, ``tools/micro.py``) and the capability probes (``caps.cu``,
-``tools/caps.py``).
+(``micro.cu``, ``tools/micro.py``), the capability probes (``caps.cu``,
+``tools/caps.py``) and the fast ladder (``ladder.cu`` over the device
+functions of ``ladder.cuh``, wrapped by ``engine/device/ladder.py``).
 """

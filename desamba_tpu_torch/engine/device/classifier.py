@@ -45,7 +45,7 @@ from . import rescore_pl as drp
 from .arrays import DeviceIndex
 from .intops import I32
 from .islands import bloom_hit_kernel
-from .ladder import IV_HOT, fast_ladder, slow_ladder
+from .ladder import IV_HOT, run_fast_ladder, slow_ladder
 from .pipeline import pre13_values
 
 A_CAP = 96
@@ -261,8 +261,9 @@ class DeviceClassifier:
         args = (self.ixr, dix.fm_blocks, dix.rank, dix.hash13, codes_fr,
                 buf_len, pre13, dix.q_mem, dix.q_lv, lane_args)
         if kind == "fast":
-            return fast_ladder(*args, l_ek=self.idx.len_e_kmer, a_cap=A_CAP,
-                               pack_cap=2 * NB, iv_cap=iv_cap)
+            return run_fast_ladder(*args, l_ek=self.idx.len_e_kmer,
+                                   a_cap=A_CAP, pack_cap=2 * NB,
+                                   iv_cap=iv_cap)
         return slow_ladder(*args, l_ek=self.idx.len_e_kmer, a_cap=A_CAP,
                            m_cap=M_CAP, pack_cap=2 * NB, iv_cap=iv_cap)
 

@@ -1,16 +1,24 @@
 """Fast / slow classify ladders (src/cly.c:1478-1611).
 
-Counterpart of ``desamba_tpu/engine/device/ladder.py``. Each ladder is an
-eager torch loop over the ``cond``/``body`` of the JAX ``while_loop``: it
-syncs with the host once per trip (``active.any()``) and runs until the
-same live condition fails, never a fixed worst-case trip count.
+Counterpart of ``desamba_tpu/engine/device/ladder.py``. ``fast_ladder`` and
+``slow_ladder`` are eager torch loops over the ``cond``/``body`` of the JAX
+``while_loop``: each syncs with the host once per trip (``active.any()``)
+and runs until the same live condition fails, never a fixed worst-case
+trip count.
 
 The JAX ladder compacts at most ``bl`` active lanes per trip (a TPU cost
 knob); every lane's trajectory is independent of the trip it runs in, so
 the port takes ALL active lanes each trip (``bl`` = the live count). The
 results are the same lane for lane; only the trip count differs.
+
+The fast ladder is also the hand-written CUDA kernel ``kernels/ladder.cu``
+(one thread runs one lane's whole ladder): ``run_fast_ladder`` launches it
+for CUDA tensors (``fast_ladder_cuda``) and runs the eager ``fast_ladder``,
+its plain version, only for CPU tensors.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,7 +33,7 @@ from ...constants import (
 from . import fm as dev_fm
 from .intops import I32, argsort_stable
 from .mapseed import A_NF, map_seed_lanes
-from .textwalk import pack2
+from .textwalk import IV_CAP, pack2
 
 # SP_SET hot-tier size (overflowing groups re-run at full IV_CAP)
 IV_HOT = 32
@@ -104,10 +112,13 @@ def fast_ladder(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr,
     j = seed_len - 1
     active = lane_on & (j >= min_index)
     skip_flag = torch.zeros((N,), dtype=torch.bool, device=dev)
+    fast_ladder.runs += 1
+    fast_ladder.trips = 0
     while True:
         rg = active.nonzero().squeeze(1)
         if rg.numel() == 0:
             break
+        fast_ladder.trips += 1
         j_c, str_idx, out = _probe(
             ixr, fm_blocks, rank6, hash13, codes_fr, codes_pk, pre13_fr,
             l_ek, rg, j, spset, spcount, ridx, base, seed_off,
@@ -140,6 +151,138 @@ def fast_ladder(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr,
     packed, a_base, p_ovf = pack_anchors(anchors, a_cnt, pack_cap)
     return packed, pack_info(a_base, a_cnt, skip_flag, spcount[:, 2] > 0), \
         p_ovf
+
+
+# calls of the plain version, and the trips of its last call (the longest
+# lane's ladder trips)
+fast_ladder.runs = 0
+fast_ladder.trips = 0
+
+# LadderArgs of kernels/ladder.cuh, field for field: pointers, then ints
+_ARG_PTRS = (
+    "fm_blocks", "rank6", "hash13", "row_pos", "isa", "text_pk", "sep_any",
+    "sep_hash", "samp_bits", "uni_start", "uni_len", "uni_ref_list",
+    "rp_global_off", "rp_ref_id", "ref_off", "ref_pk", "pos2uni", "q_mem",
+    "q_lv", "codes", "codes_pk", "buf_len", "pre13", "lane_args", "anchors",
+    "a_cnt", "skip", "iv_ovf", "trips", "iv")
+_ARG_INTS = (
+    "n_blocks", "n_hash13", "n_row_pos", "n_text", "n_text_pk", "n_sep_any",
+    "n_sep_hash", "n_samp", "n_uni_tab", "n_rp", "n_ref", "n_ref_pk",
+    "n_q_mem", "q_lv_rows", "q_lv_cols", "text_len", "n_uni", "n_bases",
+    "codes_w", "codes_pk_w", "pre13_w", "nb", "l_ek", "a_cap", "iv_cap")
+
+
+class LadderArgs(ctypes.Structure):
+    """The kernel's argument block: ~30 device pointers (``c_void_p``, never
+    a default ctypes int, which would cut them to 32 bits) and the sizes."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _ARG_PTRS]
+                + [(n, ctypes.c_int) for n in _ARG_INTS])
+
+
+def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
+                       pre13_fr, q_mem, q_lv, lane_args, *, l_ek: int,
+                       a_cap: int, iv_cap: int | None = None):
+    """The kernel's LadderArgs over the inputs, on their device, with its
+    outputs and scratch allocated: (args, tensors). ``tensors`` holds every
+    tensor the pointers name (keep it alive until the kernel has run).
+    Raises ValueError on an input the kernel does not take."""
+    cap = IV_CAP if iv_cap is None else iv_cap
+    NB = lane_args.shape[1]
+    dev = lane_args.device
+    t = dict(
+        fm_blocks=fm_blocks, rank6=rank6, hash13=hash13,
+        row_pos=ixr.row_pos, isa=ixr.isa, text_pk=ixr.text_pk,
+        sep_any=ixr.sep_any, sep_hash=ixr.sep_hash, samp_bits=ixr.samp_bits,
+        uni_start=ixr.uni_start, uni_len=ixr.uni_len,
+        uni_ref_list=ixr.uni_ref_list, rp_global_off=ixr.rp_global_off,
+        rp_ref_id=ixr.rp_ref_id, ref_off=ixr.ref_off, ref_pk=ixr.ref_pk,
+        pos2uni=ixr.pos2uni, q_mem=q_mem, q_lv=q_lv, codes=codes_fr,
+        codes_pk=pack2(codes_fr).contiguous(), buf_len=buf_len,
+        pre13=pre13_fr, lane_args=lane_args,
+        anchors=torch.zeros((NB, a_cap, A_NF), dtype=I32, device=dev),
+        a_cnt=torch.empty((NB,), dtype=I32, device=dev),
+        skip=torch.empty((NB,), dtype=I32, device=dev),
+        iv_ovf=torch.empty((NB,), dtype=I32, device=dev),
+        trips=torch.empty((NB,), dtype=I32, device=dev),
+        iv=torch.empty((NB, cap, 2), dtype=I32, device=dev))
+    for name, x in t.items():
+        want = torch.uint8 if name == "codes" else I32
+        if x.device != dev or x.dtype != want or not x.is_contiguous():
+            raise ValueError(f"ladder kernel: {name} must be a contiguous "
+                             f"{want} tensor on {dev}")
+    if lane_args.dim() != 2 or lane_args.shape[0] != 8:
+        raise ValueError("ladder kernel: lane_args must be (8, NB)")
+    if (codes_fr.dim() != 2 or pre13_fr.shape[0] != codes_fr.shape[0]
+            or buf_len.shape != codes_fr.shape[:1] or fm_blocks.shape[1] != 9
+            or q_lv.dim() != 2 or cap < 1 or a_cap < 1):
+        raise ValueError("ladder kernel: inconsistent batch or table shapes")
+    sizes = dict(
+        n_blocks=fm_blocks.shape[0], n_hash13=hash13.shape[0],
+        n_row_pos=ixr.row_pos.shape[0], n_text=ixr.isa.shape[0],
+        n_text_pk=ixr.text_pk.shape[-1], n_sep_any=ixr.sep_any.shape[0],
+        n_sep_hash=ixr.sep_hash.shape[0], n_samp=ixr.samp_bits.shape[0],
+        n_uni_tab=ixr.uni_len.shape[0], n_rp=ixr.rp_global_off.shape[0],
+        n_ref=ixr.ref_off.shape[0], n_ref_pk=ixr.ref_pk.shape[-1],
+        n_q_mem=q_mem.shape[0], q_lv_rows=q_lv.shape[0],
+        q_lv_cols=q_lv.shape[1], text_len=ixr.text_len, n_uni=ixr.n_uni,
+        n_bases=ixr.n_bases, codes_w=codes_fr.shape[1],
+        codes_pk_w=t["codes_pk"].shape[1], pre13_w=pre13_fr.shape[1], nb=NB,
+        l_ek=l_ek, a_cap=a_cap, iv_cap=cap)
+    args = LadderArgs(**{n: t[n].data_ptr() for n in _ARG_PTRS},
+                      **{n: int(sizes[n]) for n in _ARG_INTS})
+    return args, t
+
+
+def ladder_outputs(t, pack_cap: int):
+    """(packed, info, pack_overflow) from a launch's output tensors, as the
+    plain version returns them."""
+    packed, a_base, p_ovf = pack_anchors(t["anchors"], t["a_cnt"], pack_cap)
+    return packed, pack_info(a_base, t["a_cnt"], t["skip"],
+                             t["iv_ovf"]), p_ovf
+
+
+def fast_ladder_cuda(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
+                     pre13_fr, q_mem, q_lv, lane_args, *, l_ek: int,
+                     a_cap: int, pack_cap: int, iv_cap: int | None = None):
+    """Launch the fast-ladder kernel on CUDA tensors; returns what
+    ``fast_ladder`` returns. The lanes' trips stay in
+    ``fast_ladder_cuda.trips`` (NB,). A refused launch raises."""
+    from ...kernels.build import ladder_lib
+
+    if lane_args.device.type != "cuda":
+        raise ValueError("fast_ladder_cuda: the tensors must be on a CUDA "
+                         "device")
+    args, t = ladder_launch_args(
+        ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr, q_mem,
+        q_lv, lane_args, l_ek=l_ek, a_cap=a_cap, iv_cap=iv_cap)
+    lib = ladder_lib()
+    if lib.ladder_args_size() != ctypes.sizeof(LadderArgs):
+        raise RuntimeError("ladder kernel: LadderArgs differs from the "
+                           "kernel's struct")
+    rc = lib.ladder_fast_launch(
+        ctypes.addressof(args),
+        torch.cuda.current_stream(lane_args.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ladder kernel launch failed: CUDA error {rc}")
+    fast_ladder_cuda.launches += 1
+    fast_ladder_cuda.trips = t["trips"]
+    return ladder_outputs(t, pack_cap)
+
+
+fast_ladder_cuda.launches = 0
+fast_ladder_cuda.trips = None
+
+
+def run_fast_ladder(*args, **kw):
+    """The fast ladder on the inputs' device: the kernel for CUDA tensors,
+    the eager plain version for CPU tensors. There is no other path: a
+    failed build or launch raises."""
+    dev = args[9].device            # lane_args
+    if dev.type == "cuda":
+        return fast_ladder_cuda(*args, **kw)
+    if dev.type == "cpu":
+        return fast_ladder(*args, **kw)
+    raise ValueError(f"unsupported device {dev}")
 
 
 def slow_ladder(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr,

@@ -17,7 +17,8 @@ import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("rescore.cu", "cmpcount.cu", "plops.cu", "micro.cu", "caps.cu")
+SOURCES = ("rescore.cu", "cmpcount.cu", "plops.cu", "micro.cu", "caps.cu",
+           "ladder.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -131,3 +132,9 @@ def micro_lib():
 def caps_lib():
     # probe, a, b, out, the table's rows, stream
     return _bound("caps.cu", {"caps_launch": "ippp" + "i" + "p"})
+
+
+def ladder_lib():
+    # a pointer to the LadderArgs block, stream; the struct's size
+    return _bound("ladder.cu", {"ladder_fast_launch": "pp",
+                                "ladder_args_size": ""})
