@@ -16,16 +16,17 @@ and a C compiler. Phases:
 3. end to end: DeviceClassifier(device="cuda") over every read, its SAM
    byte-equal to the gold oracle's (ClassifyEngine) on the same reads,
    with the slow ladders and the M3 path both taken; the kernels' launch
-   counts are zeroed just before and read just after this run, and so is
-   the eager fast ladder's count of runs: the run fails if the rescore
-   kernel (K1) or the fast-ladder kernel (B2) was not launched, or if the
-   eager fast ladder ran on the card;
+   counts are zeroed just before and read just after this run, and so are
+   the eager ladders' counts of runs: the run fails if the rescore kernel
+   (K1) or either ladder kernel (B2, B3) was not launched, or if an eager
+   ladder ran on the card;
 4. long reads: a new DeviceClassifier over one batch of 64 reads, the
    first 62 of phase 3's and two of at least 250 kb (a chimera of whole
    references end to end, and a span of one reference inside random
    sequence), so that K1's 9-mer tables are too wide for the least fence
    stride; its SAM byte-equal to gold's, K1 launched in that run (counts
-   zeroed just before, read just after) and, as in phase 5, bit-equal to
+   zeroed just before, read just after; both ladder kernels too, and no
+   eager ladder) and, as in phase 5, bit-equal to
    its plain version on every row of each of its batches, with the table
    width, the fence stride, the shared memory a block and the rows of long
    reads with chains printed;
@@ -45,6 +46,13 @@ and a C compiler. Phases:
    lanes and NB, the kernel's ms by CUDA events (launch and pack), the
    plain version's ms and trips, the lanes' mean trips and the bound; the
    record sums the first batch's calls;
+5c. B3, the slow ladder: the same on phase 3's first batch's slow-ladder
+   calls (both directions, each a group of island lengths), the run's
+   first slow re-dispatch at the full SP_SET tier where there was one, and
+   the first batch's last slow call again at ``iv_cap=1``, each bit-equal
+   to the eager ``slow_ladder`` on the card (packed anchors, info rows with
+   the MEM overflow in column 2, pack overflow), with the same numbers a
+   call and ``ptxas``'s line for the kernel;
 6. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
    at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
    launches the compare-count kernel (K3) on a sorted table (the 1-lane
@@ -472,7 +480,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from desamba_tpu_torch.engine.device import ladder, plops
     from desamba_tpu_torch.engine.device import rescore_pl as trp
-    from desamba_tpu_torch.engine.device.classifier import (A_CAP,
+    from desamba_tpu_torch.engine.device.classifier import (A_CAP, M_CAP,
                                                             DeviceClassifier)
     from desamba_tpu_torch.engine.gold.classify import ClassifyEngine, Options
     from desamba_tpu_torch.index.build import build_index
@@ -498,6 +506,8 @@ def main():
     log(f"ptxas rescore_kernel: {k1_ptxas}")
     b2_ptxas = ptxas_lines(built["ladder.cu"], "fast_ladder_kernel")
     log(f"ptxas fast_ladder_kernel: {b2_ptxas}")
+    b3_ptxas = ptxas_lines(built["ladder.cu"], "slow_ladder_kernel")
+    log(f"ptxas slow_ladder_kernel: {b3_ptxas}")
 
     # ---- 2. data ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -520,16 +530,19 @@ def main():
     # ---- 3. end to end ----------------------------------------------------
     opts = Options()
     kernels = {"rescore": trp.rescore_cuda, "cmpcount": compare_count,
-               "fast_ladder": ladder.fast_ladder_cuda}
+               "fast_ladder": ladder.fast_ladder_cuda,
+               "slow_ladder": ladder.slow_ladder_cuda}
+    eager = {"fast_ladder": ladder.fast_ladder,
+             "slow_ladder": ladder.slow_ladder}
     failures = []
 
     def classify(batch, what):
         """A new DeviceClassifier over ``batch``, the kernels' counts (and
-        the eager fast ladder's runs) zeroed just before and read just
-        after, its SAM held against gold's. Returns (classifier, first
-        rescore input per anchor width, launches, [(iv_cap, arguments)] of
-        the first batch's fast-ladder calls and the first one at the full
-        SP_SET tier)."""
+        the eager ladders' runs) zeroed just before and read just after,
+        its SAM held against gold's. Returns (classifier, first rescore
+        input per anchor width, launches, [(kind, iv_cap, arguments)] of
+        the first batch's ladder calls and, of each kind, the first one at
+        the full SP_SET tier)."""
         clf = DeviceClassifier(idx, opts, "cuda")
         captured, ladder_calls = {}, []
         orig, orig_ladder = clf._k_rescore, clf._k_ladder
@@ -539,26 +552,26 @@ def main():
             return orig(inp)
 
         def capture_ladder(kind, *a, iv_cap=ladder.IV_HOT):
-            if kind == "fast":
-                # a[0] is the batch's codes_fr
-                first = not ladder_calls or ladder_calls[0][1][0] is a[0]
-                if (iv_cap == ladder.IV_HOT and first) or (
-                        iv_cap is None
-                        and all(c is not None for c, _ in ladder_calls)):
-                    ladder_calls.append((iv_cap, a))
+            # a[0] is the batch's codes_fr
+            first = not ladder_calls or ladder_calls[0][2][0] is a[0]
+            if (iv_cap == ladder.IV_HOT and first) or (
+                    iv_cap is None and not any(
+                        k == kind and c is None for k, c, _ in ladder_calls)):
+                ladder_calls.append((kind, iv_cap, a))
             return orig_ladder(kind, *a, iv_cap=iv_cap)
 
         clf._k_rescore, clf._k_ladder = capture, capture_ladder
         for k in kernels.values():
             k.launches = 0
-        ladder.fast_ladder.runs = 0
+        for f in eager.values():
+            f.runs = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = list(clf.classify_reads(batch))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}
-        eager_runs = ladder.fast_ladder.runs
+        eager_runs = {n: f.runs for n, f in eager.items()}
         clf._k_rescore, clf._k_ladder = orig, orig_ladder
         got = "".join(format_result(r, idx.ref_name, opts) for r in res)
         log(f"{what}: {len(batch)} reads in {wall:.3f} s = "
@@ -579,15 +592,16 @@ def main():
         else:
             log(f"{what}: SAM byte-equal to gold: {len(got.splitlines())} "
                 f"lines")
-        for name in ("rescore", "fast_ladder"):
+        for name in ("rescore", "fast_ladder", "slow_ladder"):
             if launches[name] <= 0:
                 failures.append(f"kernel {name} was not launched by the "
                                 f"{what} run")
-        if eager_runs:
-            failures.append(f"the eager fast ladder ran {eager_runs} times "
-                            f"on the card in the {what} run")
+        for name, n in eager_runs.items():
+            if n:
+                failures.append(f"the eager {name} ran {n} times on the "
+                                f"card in the {what} run")
         log(f"{what} launches: " + json.dumps(launches)
-            + f"; eager fast-ladder runs {eager_runs}")
+            + "; eager ladder runs " + json.dumps(eager_runs))
         return clf, captured, launches, ladder_calls
 
     dev, captured, launches, ladder_calls = classify(reads, "end to end")
@@ -683,26 +697,31 @@ def main():
             "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
             "library_ms": None, "library_eager_ms": None})
 
-    # ---- 5b. B2: the fast ladder on the main path's calls --------------------
-    def check_b2(tag, a, iv_cap):
-        """The kernel and the eager fast ladder on one captured call's
-        arguments at ``iv_cap``: compared (tolerance 0), timed, bounded."""
+    # ---- 5b, 5c. B2 and B3: the ladders on the main path's calls -----------
+    def check_ladder(which, tag, a, iv_cap):
+        """The ``which`` ladder's kernel and its eager version on one captured
+        call's arguments at ``iv_cap``: compared (tolerance 0), timed,
+        bounded."""
         codes_fr, buf_len, pre13, lane_args, NB = a
         dix = dev.dix
         args = (dev.ixr, dix.fm_blocks, dix.rank, dix.hash13, codes_fr,
                 buf_len, pre13, dix.q_mem, dix.q_lv, lane_args)
         kw = dict(l_ek=idx.len_e_kmer, a_cap=A_CAP, pack_cap=2 * NB,
                   iv_cap=iv_cap)
-        got = ladder.fast_ladder_cuda(*args, **kw)
+        if which == "slow":
+            kw["m_cap"] = M_CAP
+        kernel = kernels[f"{which}_ladder"]
+        plain = eager[f"{which}_ladder"]
+        got = kernel(*args, **kw)
         torch.cuda.synchronize()
-        trips = ladder.fast_ladder_cuda.trips.cpu().numpy()
+        trips = kernel.trips.cpu().numpy()
         e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
         e0.record()
-        exp = ladder.fast_ladder(*args, **kw)
+        exp = plain(*args, **kw)
         e1.record()
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1)
-        ms = cuda_ms(lambda: ladder.fast_ladder_cuda(*args, **kw), 5)
+        ms = cuda_ms(lambda: kernel(*args, **kw), 5)
         err = max(int((got[0].long() - exp[0].long()).abs().max()),
                   int((got[1].long() - exp[1].long()).abs().max()),
                   int(got[2] != exp[2]))
@@ -711,58 +730,65 @@ def main():
                               idx.len_e_kmer, A_CAP, 2 * NB)
         bnd = bound(nbytes, 0)
         lanes = int((lane_args[7] != 0).sum())
-        log(f"fast ladder {tag} (iv_cap {iv_cap}): {lanes} lanes, NB {NB}: "
+        extra = (f", {int(info[:, 2].sum())} lanes with more than {M_CAP} "
+                 f"MEMs" if which == "slow" else "")
+        log(f"{which} ladder {tag} (iv_cap {iv_cap}): {lanes} lanes, NB {NB}: "
             f"kernel {ms:.4f} ms (launch and pack, by events), plain "
-            f"{plain_ms:.1f} ms over {ladder.fast_ladder.trips} trips; lanes' "
+            f"{plain_ms:.1f} ms over {plain.trips} trips; lanes' "
             f"trips: longest {int(trips.max())}, mean over the lanes "
             f"{trips[:lanes].mean():.3f}; bound {bnd[0]:.6f} ms ({bnd[1]}; "
             f"{nbytes} bytes, index words not counted); "
             f"{int(info[:, 1].sum())} anchors, {int(info[:, 3].sum())} lanes "
-            f"with an SP_SET overflow; max_abs_err {err}")
+            f"with an SP_SET overflow{extra}; max_abs_err {err}")
         if err != 0:
-            failures.append(f"fast ladder {tag} (iv_cap {iv_cap}): kernel "
+            failures.append(f"{which} ladder {tag} (iv_cap {iv_cap}): kernel "
                             f"differs from the eager version: max_abs_err "
                             f"{err}")
-        if int(trips.max()) != ladder.fast_ladder.trips:
-            failures.append(f"fast ladder {tag}: longest lane {trips.max()} "
-                            f"trips, eager loop {ladder.fast_ladder.trips}")
+        if int(trips.max()) != plain.trips:
+            failures.append(f"{which} ladder {tag}: longest lane "
+                            f"{trips.max()} trips, eager loop {plain.trips}")
         if ms < bnd[0]:
-            failures.append(f"fast ladder {tag} beat its bound: {ms} < "
+            failures.append(f"{which} ladder {tag} beat its bound: {ms} < "
                             f"{bnd[0]} ms")
         return dict(ms=ms, plain_ms=plain_ms, err=err, nbytes=nbytes,
                     ovf=int(info[:, 3].sum()))
 
-    batch1 = [a for c, a in ladder_calls if c is not None]
-    if not batch1:
-        failures.append("no fast-ladder call was captured")
-    else:
-        b2 = [check_b2(f"batch 1 call {i + 1}", a, ladder.IV_HOT)
-              for i, a in enumerate(batch1)]
-        full = [a for c, a in ladder_calls if c is None]
+    for which, name, line, ptxas in (
+            ("fast", "fast_ladder", 98, b2_ptxas),
+            ("slow", "slow_ladder", 211, b3_ptxas)):
+        batch1 = [a for k, c, a in ladder_calls
+                  if k == which and c is not None]
+        if not batch1:
+            failures.append(f"no {which}-ladder call was captured")
+            continue
+        checked = [check_ladder(which, f"batch 1 call {i + 1}", a,
+                                ladder.IV_HOT) for i, a in enumerate(batch1)]
+        full = [a for k, c, a in ladder_calls if k == which and c is None]
         if full:
-            check_b2("first full-tier re-dispatch", full[0], None)
+            check_ladder(which, "first full-tier re-dispatch", full[0], None)
         else:
-            log("fast ladder: no full-tier re-dispatch in the main run")
-        forced = check_b2(f"batch 1 call {len(batch1)}", batch1[-1], 1)
+            log(f"{which} ladder: no full-tier re-dispatch in the main run")
+        forced = check_ladder(which, f"batch 1 call {len(batch1)}",
+                              batch1[-1], 1)
         if forced["ovf"] <= 0:
-            failures.append("fast ladder at iv_cap=1 never overflowed")
-        nbytes = sum(r["nbytes"] for r in b2)
+            failures.append(f"{which} ladder at iv_cap=1 never overflowed")
+        nbytes = sum(r["nbytes"] for r in checked)
         bms, by = bound(nbytes, 0)
-        log(f"fast ladder, batch 1 ({len(b2)} calls): kernel "
-            f"{sum(r['ms'] for r in b2):.4f} ms, plain "
-            f"{sum(r['plain_ms'] for r in b2):.1f} ms, bound {bms:.6f} ms "
-            f"({by}; {nbytes} bytes); ptxas {b2_ptxas}")
+        log(f"{which} ladder, batch 1 ({len(checked)} calls): kernel "
+            f"{sum(r['ms'] for r in checked):.4f} ms, plain "
+            f"{sum(r['plain_ms'] for r in checked):.1f} ms, bound "
+            f"{bms:.6f} ms ({by}; {nbytes} bytes); ptxas {ptxas}")
         records.append({
-            "name": "fast_ladder", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "desamba_tpu_torch/kernels/ladder.cu",
-            "replaces": "desamba_tpu/engine/device/ladder.py:98",
-            "launches": launches["fast_ladder"],
-            "max_abs_err": max(r["err"] for r in b2 + [forced]),
-            "ms": sum(r["ms"] for r in b2),
-            "plain_ms": sum(r["plain_ms"] for r in b2),
+            "replaces": f"desamba_tpu/engine/device/ladder.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(r["err"] for r in checked + [forced]),
+            "ms": sum(r["ms"] for r in checked),
+            "plain_ms": sum(r["plain_ms"] for r in checked),
             "bound_ms": bms, "bound_by": by,
             "library_ms": None, "library_eager_ms": None})
-    del ladder_calls, batch1
+    del ladder_calls
 
     # ---- 6. gather bench: the compare-count kernel (K3) ---------------------
     dev0 = torch.device("cuda")
@@ -1018,8 +1044,8 @@ def main():
               if r["library_ms"] is not None and r["ms"] > r["library_ms"]]
     log("kernels slower than their library call in a graph: "
         + (", ".join(slower) or "none"))
-    if len(records) != 25:
-        failures.append(f"{len(records)} kernel records, not 25")
+    if len(records) != 26:
+        failures.append(f"{len(records)} kernel records, not 26")
     log(json.dumps({"kernels": records}))
     if failures:
         for f in failures:

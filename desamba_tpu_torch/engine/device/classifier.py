@@ -45,7 +45,7 @@ from . import rescore_pl as drp
 from .arrays import DeviceIndex
 from .intops import I32
 from .islands import bloom_hit_kernel
-from .ladder import IV_HOT, run_fast_ladder, slow_ladder
+from .ladder import IV_HOT, run_fast_ladder, run_slow_ladder
 from .pipeline import pre13_values
 
 A_CAP = 96
@@ -264,8 +264,8 @@ class DeviceClassifier:
             return run_fast_ladder(*args, l_ek=self.idx.len_e_kmer,
                                    a_cap=A_CAP, pack_cap=2 * NB,
                                    iv_cap=iv_cap)
-        return slow_ladder(*args, l_ek=self.idx.len_e_kmer, a_cap=A_CAP,
-                           m_cap=M_CAP, pack_cap=2 * NB, iv_cap=iv_cap)
+        return run_slow_ladder(*args, l_ek=self.idx.len_e_kmer, a_cap=A_CAP,
+                               m_cap=M_CAP, pack_cap=2 * NB, iv_cap=iv_cap)
 
     def _k_rescore(self, inp):
         dix = self.dix

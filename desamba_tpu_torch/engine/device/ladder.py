@@ -11,10 +11,11 @@ knob); every lane's trajectory is independent of the trip it runs in, so
 the port takes ALL active lanes each trip (``bl`` = the live count). The
 results are the same lane for lane; only the trip count differs.
 
-The fast ladder is also the hand-written CUDA kernel ``kernels/ladder.cu``
-(one thread runs one lane's whole ladder): ``run_fast_ladder`` launches it
-for CUDA tensors (``fast_ladder_cuda``) and runs the eager ``fast_ladder``,
-its plain version, only for CPU tensors.
+Each ladder is also a hand-written CUDA kernel in ``kernels/ladder.cu``
+(one thread runs one lane's whole ladder): ``run_fast_ladder`` and
+``run_slow_ladder`` launch them for CUDA tensors (``fast_ladder_cuda``,
+``slow_ladder_cuda``) and run the eager ``fast_ladder`` and
+``slow_ladder``, their plain versions, only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -164,12 +165,13 @@ _ARG_PTRS = (
     "sep_hash", "samp_bits", "uni_start", "uni_len", "uni_ref_list",
     "rp_global_off", "rp_ref_id", "ref_off", "ref_pk", "pos2uni", "q_mem",
     "q_lv", "codes", "codes_pk", "buf_len", "pre13", "lane_args", "anchors",
-    "a_cnt", "skip", "iv_ovf", "trips", "iv")
+    "a_cnt", "flag", "iv_ovf", "trips", "iv")
 _ARG_INTS = (
     "n_blocks", "n_hash13", "n_row_pos", "n_text", "n_text_pk", "n_sep_any",
     "n_sep_hash", "n_samp", "n_uni_tab", "n_rp", "n_ref", "n_ref_pk",
     "n_q_mem", "q_lv_rows", "q_lv_cols", "text_len", "n_uni", "n_bases",
-    "codes_w", "codes_pk_w", "pre13_w", "nb", "l_ek", "a_cap", "iv_cap")
+    "codes_w", "codes_pk_w", "pre13_w", "nb", "l_ek", "a_cap", "iv_cap",
+    "m_cap")
 
 
 class LadderArgs(ctypes.Structure):
@@ -181,11 +183,13 @@ class LadderArgs(ctypes.Structure):
 
 def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
                        pre13_fr, q_mem, q_lv, lane_args, *, l_ek: int,
-                       a_cap: int, iv_cap: int | None = None):
-    """The kernel's LadderArgs over the inputs, on their device, with its
+                       a_cap: int, iv_cap: int | None = None,
+                       m_cap: int = 0):
+    """The kernels' LadderArgs over the inputs, on their device, with the
     outputs and scratch allocated: (args, tensors). ``tensors`` holds every
     tensor the pointers name (keep it alive until the kernel has run).
-    Raises ValueError on an input the kernel does not take."""
+    ``m_cap`` is the slow ladder's (the fast kernel does not read it).
+    Raises ValueError on an input the kernels do not take."""
     cap = IV_CAP if iv_cap is None else iv_cap
     NB = lane_args.shape[1]
     dev = lane_args.device
@@ -201,7 +205,7 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
         pre13=pre13_fr, lane_args=lane_args,
         anchors=torch.zeros((NB, a_cap, A_NF), dtype=I32, device=dev),
         a_cnt=torch.empty((NB,), dtype=I32, device=dev),
-        skip=torch.empty((NB,), dtype=I32, device=dev),
+        flag=torch.empty((NB,), dtype=I32, device=dev),
         iv_ovf=torch.empty((NB,), dtype=I32, device=dev),
         trips=torch.empty((NB,), dtype=I32, device=dev),
         iv=torch.empty((NB, cap, 2), dtype=I32, device=dev))
@@ -214,7 +218,7 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
         raise ValueError("ladder kernel: lane_args must be (8, NB)")
     if (codes_fr.dim() != 2 or pre13_fr.shape[0] != codes_fr.shape[0]
             or buf_len.shape != codes_fr.shape[:1] or fm_blocks.shape[1] != 9
-            or q_lv.dim() != 2 or cap < 1 or a_cap < 1):
+            or q_lv.dim() != 2 or cap < 1 or a_cap < 1 or m_cap < 0):
         raise ValueError("ladder kernel: inconsistent batch or table shapes")
     sizes = dict(
         n_blocks=fm_blocks.shape[0], n_hash13=hash13.shape[0],
@@ -227,7 +231,7 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
         q_lv_cols=q_lv.shape[1], text_len=ixr.text_len, n_uni=ixr.n_uni,
         n_bases=ixr.n_bases, codes_w=codes_fr.shape[1],
         codes_pk_w=t["codes_pk"].shape[1], pre13_w=pre13_fr.shape[1], nb=NB,
-        l_ek=l_ek, a_cap=a_cap, iv_cap=cap)
+        l_ek=l_ek, a_cap=a_cap, iv_cap=cap, m_cap=m_cap)
     args = LadderArgs(**{n: t[n].data_ptr() for n in _ARG_PTRS},
                       **{n: int(sizes[n]) for n in _ARG_INTS})
     return args, t
@@ -237,52 +241,62 @@ def ladder_outputs(t, pack_cap: int):
     """(packed, info, pack_overflow) from a launch's output tensors, as the
     plain version returns them."""
     packed, a_base, p_ovf = pack_anchors(t["anchors"], t["a_cnt"], pack_cap)
-    return packed, pack_info(a_base, t["a_cnt"], t["skip"],
+    return packed, pack_info(a_base, t["a_cnt"], t["flag"],
                              t["iv_ovf"]), p_ovf
 
 
-def fast_ladder_cuda(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
-                     pre13_fr, q_mem, q_lv, lane_args, *, l_ek: int,
-                     a_cap: int, pack_cap: int, iv_cap: int | None = None):
-    """Launch the fast-ladder kernel on CUDA tensors; returns what
-    ``fast_ladder`` returns. The lanes' trips stay in
-    ``fast_ladder_cuda.trips`` (NB,). A refused launch raises."""
+def _launch(entry, args, kw, pack_cap):
+    """Launch ladder kernel ``entry`` of ``ladder_lib()`` on CUDA tensors;
+    returns (what the plain version returns, the lanes' trips). A refused
+    launch raises."""
     from ...kernels.build import ladder_lib
 
+    lane_args = args[9]
     if lane_args.device.type != "cuda":
-        raise ValueError("fast_ladder_cuda: the tensors must be on a CUDA "
-                         "device")
-    args, t = ladder_launch_args(
-        ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr, q_mem,
-        q_lv, lane_args, l_ek=l_ek, a_cap=a_cap, iv_cap=iv_cap)
+        raise ValueError(f"{entry}: the tensors must be on a CUDA device")
+    largs, t = ladder_launch_args(*args, **kw)
     lib = ladder_lib()
     if lib.ladder_args_size() != ctypes.sizeof(LadderArgs):
         raise RuntimeError("ladder kernel: LadderArgs differs from the "
                            "kernel's struct")
-    rc = lib.ladder_fast_launch(
-        ctypes.addressof(args),
+    rc = getattr(lib, entry)(
+        ctypes.addressof(largs),
         torch.cuda.current_stream(lane_args.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ladder kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+    return ladder_outputs(t, pack_cap), t["trips"]
+
+
+def fast_ladder_cuda(*args, l_ek: int, a_cap: int, pack_cap: int,
+                     iv_cap: int | None = None):
+    """Launch the fast-ladder kernel on CUDA tensors (``fast_ladder``'s
+    arguments); returns what ``fast_ladder`` returns. The lanes' trips stay
+    in ``fast_ladder_cuda.trips`` (NB,). A refused launch raises."""
+    out, fast_ladder_cuda.trips = _launch(
+        "ladder_fast_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
+                                         iv_cap=iv_cap), pack_cap)
     fast_ladder_cuda.launches += 1
-    fast_ladder_cuda.trips = t["trips"]
-    return ladder_outputs(t, pack_cap)
+    return out
 
 
 fast_ladder_cuda.launches = 0
 fast_ladder_cuda.trips = None
 
 
-def run_fast_ladder(*args, **kw):
-    """The fast ladder on the inputs' device: the kernel for CUDA tensors,
-    the eager plain version for CPU tensors. There is no other path: a
-    failed build or launch raises."""
+def _run(kernel, plain, args, kw):
+    """A ladder on its inputs' device: the kernel for CUDA tensors, the
+    eager plain version for CPU tensors. There is no other path: a failed
+    build or launch raises."""
     dev = args[9].device            # lane_args
     if dev.type == "cuda":
-        return fast_ladder_cuda(*args, **kw)
+        return kernel(*args, **kw)
     if dev.type == "cpu":
-        return fast_ladder(*args, **kw)
+        return plain(*args, **kw)
     raise ValueError(f"unsupported device {dev}")
+
+
+def run_fast_ladder(*args, **kw):
+    return _run(fast_ladder_cuda, fast_ladder, args, kw)
 
 
 def slow_ladder(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr,
@@ -302,10 +316,13 @@ def slow_ladder(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr,
     m_cnt = torch.zeros((N,), dtype=I32, device=dev)
     j = seed_len - 1
     active = lane_on & (j >= 1)
+    slow_ladder.runs += 1
+    slow_ladder.trips = 0
     while True:
         rg = active.nonzero().squeeze(1)
         if rg.numel() == 0:
             break
+        slow_ladder.trips += 1
         j_c, str_idx, out = _probe(
             ixr, fm_blocks, rank6, hash13, codes_fr, codes_pk, pre13_fr,
             l_ek, rg, j, spset, spcount, ridx, base, seed_off,
@@ -349,3 +366,29 @@ def slow_ladder(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr,
     packed, a_base, p_ovf = pack_anchors(anchors, a_cnt, pack_cap)
     return packed, pack_info(a_base, a_cnt, overflow, spcount[:, 2] > 0), \
         p_ovf
+
+
+# calls of the plain version, and the trips of its last call
+slow_ladder.runs = 0
+slow_ladder.trips = 0
+
+
+def slow_ladder_cuda(*args, l_ek: int, a_cap: int, m_cap: int,
+                     pack_cap: int, iv_cap: int | None = None):
+    """Launch the slow-ladder kernel on CUDA tensors (``slow_ladder``'s
+    arguments); returns what ``slow_ladder`` returns. The lanes' trips stay
+    in ``slow_ladder_cuda.trips`` (NB,). A refused launch raises."""
+    out, slow_ladder_cuda.trips = _launch(
+        "ladder_slow_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
+                                         iv_cap=iv_cap, m_cap=m_cap),
+        pack_cap)
+    slow_ladder_cuda.launches += 1
+    return out
+
+
+slow_ladder_cuda.launches = 0
+slow_ladder_cuda.trips = None
+
+
+def run_slow_ladder(*args, **kw):
+    return _run(slow_ladder_cuda, slow_ladder, args, kw)

@@ -137,4 +137,5 @@ def caps_lib():
 def ladder_lib():
     # a pointer to the LadderArgs block, stream; the struct's size
     return _bound("ladder.cu", {"ladder_fast_launch": "pp",
+                                "ladder_slow_launch": "pp",
                                 "ladder_args_size": ""})

@@ -29,8 +29,8 @@
 // the port's scans over all iv_cap slots of a cleared set. The hot-tier
 // overflow (slot iv_cap - 1 overwritten, the sticky bit set) is the port's.
 //
-// Header only: kernels/ladder.cu holds the kernels and the launcher; a
-// later ladder kernel includes this file too. It compiles as host C++ over
+// Header only: kernels/ladder.cu holds the two ladder kernels (fast and
+// slow) and their launchers. It compiles as host C++ over
 // tests/cuda_host/block_emu.h, which is how the CPU tests run it.
 #pragma once
 #include <cstdint>
@@ -44,6 +44,8 @@ constexpr int SA_MASK = 0x7;
 constexpr int MIN_UNI_L = 35;
 constexpr int MEM_SEARCH_FAST = 2;
 constexpr int MIN_MEM_LEN_FAST = 21;
+constexpr int MEM_SEARCH_SLOW = 8;
+constexpr int MIN_MEM_LEN_SLOW = 20;
 constexpr int SP_SET_CAP = 500;
 constexpr int LV_ERROR = 4;
 constexpr int LV_L = 12;
@@ -86,14 +88,16 @@ struct LadderArgs {
   const int* lane_args;           // (8, nb)
   int* anchors;                   // (nb, a_cap, A_NF) out
   int* a_cnt;                     // (nb,) out: anchors emitted
-  int* skip;                      // (nb,) out: max score > 512 seen
+  int* flag;                      // (nb,) out: info column 2 (fast: a
+                                  // score > 512 seen; slow: MEM overflow)
   int* iv_ovf;                    // (nb,) out: SP_SET hot tier overflowed
   int* trips;                     // (nb,) out: the lane's ladder trips
   int* iv;                        // (nb, iv_cap, 2) scratch: the SP_SETs
   int n_blocks, n_hash13, n_row_pos, n_text, n_text_pk, n_sep_any,
       n_sep_hash, n_samp, n_uni_tab, n_rp, n_ref, n_ref_pk, n_q_mem,
       q_lv_rows, q_lv_cols, text_len, n_uni, n_bases, codes_w, codes_pk_w,
-      pre13_w, nb, l_ek, a_cap, iv_cap;
+      pre13_w, nb, l_ek, a_cap, iv_cap,
+      m_cap;                      // slow: MEMs a lane stores (fast: unused)
 };
 
 // ---- integer helpers ---------------------------------------------------------

@@ -485,8 +485,10 @@ def sites(x, sizes=None):
     int32 at the tools' size). None where there is none: the trips of K6.2
     would need a 16-GB index, and K5.c is a recurrence.
     ``ops()`` is the least int32 operations the function needs on these
-    inputs: one add per summed element, and for K5.a and K5.c one per trip
-    (a closed form is not the function's work). ``nbytes()`` is what it
+    inputs: one add per summed element, for K5.a and K5.c one per trip
+    (a closed form is not the function's work), and for K5.d three per
+    element and pass (the shift, the xor and the add, as the TPU tool
+    counts them). ``nbytes()`` is what it
     must move: the distinct table rows or elements it reads, the index
     words it uses, its scalar, and its output once. K4.4 also has ``cold``:
     its 16 MB of traffic fit the card's 50-MB L2, so repeated calls on one
@@ -629,7 +631,7 @@ def sites(x, sizes=None):
         lambda: vecwork(xv, vp), lambda: vecwork_plain(xv, vp),
         lambda: i32((xv[None] ^ (xv[None] >> shift[:, None, None])).view(
             vp, -1, 8, RW).sum((0, 1), dtype=I64)),
-        xv.numel() * vp, lambda: 4 * xv.numel() + 4 * 8 * RW)
+        3 * xv.numel() * vp, lambda: 4 * xv.numel() + 4 * 8 * RW)
     return out
 
 

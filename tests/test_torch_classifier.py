@@ -118,6 +118,28 @@ def test_cli_classify_on_cpu(small_my_index, tmp_path):
     assert out.read_text() == _gold_sam(small_my_index, recs)
 
 
+def test_cli_engine_auto_runs_gold(small_my_index, tmp_path, monkeypatch):
+    """``--engine auto`` resolves to the gold oracle, as the reference's
+    does while gold leads: the gold SAM, and no DeviceClassifier built."""
+    from desamba_tpu.index.store import save_index
+    from desamba_tpu_torch.cli import main
+    from desamba_tpu_torch.engine.device import classifier
+
+    def refuse(*a, **kw):
+        raise AssertionError("--engine auto built a DeviceClassifier")
+
+    monkeypatch.setattr(classifier, "DeviceClassifier", refuse)
+    recs = _noisy_recs(small_my_index, 3, 47)
+    save_index(small_my_index, str(tmp_path / "idx"))
+    fq = tmp_path / "reads.fq"
+    fq.write_text("".join(f"@{r.name}\n{r.seq}\n+\n{'I' * len(r.seq)}\n"
+                          for r in recs))
+    out = tmp_path / "out.sam"
+    main(["classify", str(tmp_path / "idx"), str(fq), "-o", str(out),
+          "--engine", "auto"])
+    assert out.read_text() == _gold_sam(small_my_index, recs)
+
+
 def test_cuda_device_raises_without_a_card(small_my_index):
     from desamba_tpu_torch.engine.device.classifier import DeviceClassifier
 

@@ -78,7 +78,7 @@ def captured(small_my_index, repeat_my_index, repeat_reads):
     return out
 
 
-def _port_ladder(idx, tix, c, iv_cap):
+def _port_ladder(idx, tix, c, iv_cap, m_cap=None):
     from desamba_tpu_torch.engine.device.classifier import A_CAP, M_CAP
     from desamba_tpu_torch.engine.device.ladder import fast_ladder, slow_ladder
 
@@ -89,10 +89,10 @@ def _port_ladder(idx, tix, c, iv_cap):
               iv_cap=iv_cap)
     if c["kind"] == "fast":
         return fast_ladder(*args, **kw)
-    return slow_ladder(*args, m_cap=M_CAP, **kw)
+    return slow_ladder(*args, m_cap=m_cap or M_CAP, **kw)
 
 
-def _jax_ladder(idx, jd, c, iv_cap):
+def _jax_ladder(idx, jd, c, iv_cap, m_cap=None):
     from desamba_tpu.engine.device.classifier import A_CAP, M_CAP
     from desamba_tpu.engine.device.ladder import fast_ladder, slow_ladder
 
@@ -104,7 +104,7 @@ def _jax_ladder(idx, jd, c, iv_cap):
               bl=min(128, c["NB"]), iv_cap=iv_cap)
     if c["kind"] == "fast":
         return fast_ladder(*args, **kw)
-    return slow_ladder(*args, m_cap=M_CAP, **kw)
+    return slow_ladder(*args, m_cap=m_cap or M_CAP, **kw)
 
 
 @pytest.mark.parametrize("kind", ["fast", "slow"])

@@ -56,8 +56,9 @@ def ladder_emu(tmp_path_factory):
                     "-I", KERNELS, os.path.join(host, "ladder_emu.cpp"),
                     "-o", so], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    lib.ladder_emulate.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.ladder_emulate.restype = ctypes.c_int
+    for entry in (lib.ladder_emulate, lib.ladder_slow_emulate):
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        entry.restype = ctypes.c_int
     lib.ladder_emu_error.restype = ctypes.c_char_p
     lib.ladder_args_size.restype = ctypes.c_int
     return lib
@@ -100,9 +101,9 @@ def corpora(captured, tmp_path_factory):
     return captured + [(idx, DeviceIndex.build(idx), tix, calls)]
 
 
-def _emulate(lib, idx, tix, c, iv_cap, reverse):
-    """The kernel on call ``c`` at ``iv_cap``: (packed, info, overflow) and
-    the lanes' trips."""
+def _emulate(lib, idx, tix, c, iv_cap, reverse, kind="fast", m_cap=0):
+    """The ``kind`` ladder's kernel on call ``c`` at ``iv_cap`` (and, slow,
+    ``m_cap``): (packed, info, overflow) and the lanes' trips."""
     from desamba_tpu_torch.engine.device.classifier import A_CAP
     from desamba_tpu_torch.engine.device.ladder import (LadderArgs,
                                                         ladder_launch_args,
@@ -113,8 +114,9 @@ def _emulate(lib, idx, tix, c, iv_cap, reverse):
         tix.index_refs(), tix.fm_blocks, tix.rank, tix.hash13,
         T(c["codes_fr"]), T(c["buf_len"]), T(c["pre13"]), tix.q_mem,
         tix.q_lv, T(c["lane_args"]), l_ek=idx.len_e_kmer, a_cap=A_CAP,
-        iv_cap=iv_cap)
-    rc = lib.ladder_emulate(ctypes.addressof(args), int(reverse))
+        iv_cap=iv_cap, m_cap=m_cap)
+    run = lib.ladder_emulate if kind == "fast" else lib.ladder_slow_emulate
+    rc = run(ctypes.addressof(args), int(reverse))
     assert rc == 0, lib.ladder_emu_error().decode()
     return ladder_outputs(t, 2 * c["NB"]), t["trips"]
 
@@ -177,22 +179,25 @@ def test_kernel_source_forced_iv_overflow(corpora, ladder_emu, iv_cap):
     assert n_ovf > 0, f"iv_cap={iv_cap} never overflowed"
 
 
-def _pool_lanes(tix, c, l_ek, copies=4):
+def _pool_lanes(tix, c, l_ek, copies=4, lowest=None):
     """Lanes of call ``c`` that each start at a probe whose 13-mer bucket
-    holds 3..SA_CAP rows (the lane's island cut to end there), ``copies``
-    of each in a row: on the first trip their rows, at least 3 a lane,
+    holds 3..SA_CAP rows (the lane's island cut to end there; a probe at
+    ``lowest``, by default the fast ladder's last, or above), ``copies`` of
+    each in a row: on the first trip their rows, at least 3 a lane,
     overflow the eager probe's shared SA pool of 2 rows a lane. Returns the
     call with those lanes and their count."""
     from desamba_tpu_torch.constants import MIN_MEM_LEN_FAST, PRE_IDX_MASK
     from desamba_tpu_torch.engine.device.classifier import _bucket
     from desamba_tpu_torch.engine.device.fm import SA_CAP
 
+    if lowest is None:
+        lowest = MIN_MEM_LEN_FAST - l_ek
     la, pre13 = c["lane_args"], c["pre13"]
     h = tix.hash13.numpy().view(np.uint32).astype(np.int64)
     lanes = []
     for i in np.flatnonzero(la[7] != 0):
         ridx, base, soff, slen = la[0, i], la[1, i], la[5, i], la[6, i]
-        for j in range(slen - 1, MIN_MEM_LEN_FAST - l_ek - 1, -1):
+        for j in range(slen - 1, lowest - 1, -1):
             pre = int(pre13[ridx, np.clip(base + soff + j, 0,
                                           pre13.shape[1] - 1)]) & PRE_IDX_MASK
             if 3 <= h[pre + 1] - h[pre] <= SA_CAP:
@@ -206,12 +211,10 @@ def _pool_lanes(tix, c, l_ek, copies=4):
     return dict(c, lane_args=cols, NB=NB), len(lanes)
 
 
-def test_kernel_source_sa_pool_overflow(corpora, ladder_emu, monkeypatch):
-    """A lane set whose bucket rows overflow the eager probe's shared SA
-    pool: the eager port sends lanes to the rank chase through the pool
-    (counted, > 0); the kernel takes the position-space path for every
-    bucket of at most SA_CAP rows. Both paths give the same rows in the same
-    order: kernel == eager port == JAX, tolerance 0."""
+def count_pool_routing(monkeypatch):
+    """Spy on the eager ``fm.mem_probe``: the returned list's one item
+    counts the lane-probes that its shared SA pool sent to the rank
+    chase."""
     from desamba_tpu_torch.engine.device import fm as dev_fm
     from desamba_tpu_torch.engine.device.intops import i32, take, u32
 
@@ -229,6 +232,16 @@ def test_kernel_source_sa_pool_overflow(corpora, ladder_emu, monkeypatch):
                     pre_v, active, *a, **kw)
 
     monkeypatch.setattr(dev_fm, "mem_probe", counting)
+    return routed
+
+
+def test_kernel_source_sa_pool_overflow(corpora, ladder_emu, monkeypatch):
+    """A lane set whose bucket rows overflow the eager probe's shared SA
+    pool: the eager port sends lanes to the rank chase through the pool
+    (counted, > 0); the kernel takes the position-space path for every
+    bucket of at most SA_CAP rows. Both paths give the same rows in the same
+    order: kernel == eager port == JAX, tolerance 0."""
+    routed = count_pool_routing(monkeypatch)
     lanes = 0
     for idx, jd, tix, c in _fast_calls(corpora):
         cut, n = _pool_lanes(tix, c, idx.len_e_kmer)

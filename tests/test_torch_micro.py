@@ -542,6 +542,15 @@ def test_scalarloop_library_is_the_plain_version_in_one_chunk(world):
         assert torch.equal(one, micro.scalarloop_plain(s, n, chunk_elems=97))
 
 
+def test_vecwork_counts_three_operations_an_element_pass(world):
+    """K5.d's bound counts the shift, the xor and the add of every element
+    and pass, as the TPU tool does (tools/pallas_micro2.py:166)."""
+    x, sites = world
+    site = sites["K5.d"]
+    assert site["units"] == x["xv"].size * VPASS
+    assert site["ops"]() == 3 * x["xv"].size * VPASS
+
+
 def test_full_sizes_are_the_tools_own():
     z = micro.FULL
     assert (z["KR"], z["GN"], z["REPK"], z["EB"], z["EK"], z["EN"]) == (
