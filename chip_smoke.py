@@ -17,16 +17,18 @@ and a C compiler. Phases:
    byte-equal to the gold oracle's (ClassifyEngine) on the same reads,
    with the slow ladders and the M3 path both taken; the kernels' launch
    counts are zeroed just before and read just after this run, and so are
-   the eager ladders' counts of runs: the run fails if the rescore kernel
-   (K1) or either ladder kernel (B2, B3) was not launched, or if an eager
-   ladder ran on the card;
+   the eager ladders' and chaining functions' counts of runs: the run fails
+   if the rescore kernel (K1), either ladder kernel (B2, B3) or either
+   chaining kernel (B4a, B4b) was not launched, or if an eager ladder or
+   chaining function ran on the card;
 4. long reads: a new DeviceClassifier over one batch of 64 reads, the
    first 62 of phase 3's and two of at least 250 kb (a chimera of whole
    references end to end, and a span of one reference inside random
    sequence), so that K1's 9-mer tables are too wide for the least fence
    stride; its SAM byte-equal to gold's, K1 launched in that run (counts
-   zeroed just before, read just after; both ladder kernels too, and no
-   eager ladder) and, as in phase 5, bit-equal to
+   zeroed just before, read just after; the ladder and chaining kernels
+   too, and no eager ladder or chaining function) and, as in phase 5,
+   bit-equal to
    its plain version on every row of each of its batches, with the table
    width, the fence stride, the shared memory a block and the rows of long
    reads with chains printed;
@@ -53,6 +55,14 @@ and a C compiler. Phases:
    to the eager ``slow_ladder`` on the card (packed anchors, info rows with
    the MEM overflow in column 2, pack overflow), with the same numbers a
    call and ``ptxas``'s line for the kernel;
+5d. B4, the chaining: the M2 kernel (B4a, ``chain_kernel`` of
+   ``kernels/chain.cu``) on phase 3's first three M2 calls (the first
+   batch's fast, slow0 and slow1 chain stages) and the M3 kernel (B4b,
+   ``m3_kernel``) on every M3 call of phase 3, each bit-equal (tolerance 0:
+   chains, n_out, pre, ovf) to the eager ``chain_kernel``/``m3_kernel`` on
+   the card; per call B and A2, the kernel's ms by CUDA events, the plain
+   version's ms, the bound (``chain_bytes``) and ``ptxas``'s line; each
+   record sums its calls;
 6. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
    at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
    launches the compare-count kernel (K3) on a sorted table (the 1-lane
@@ -103,8 +113,8 @@ Each kernel's bound is the larger of the bytes its function must move
 (what this run's data needs of each input, read once; each output written
 once) over the card's memory rate and the least operations that function
 needs on these inputs over the card's int32 rate (the constants below);
-``rescore_bytes``, ``cmpcount_ops`` and ``micro.sites`` say what is
-counted. A kernel or
+``rescore_bytes``, ``ladder_bytes``, ``chain_bytes``, ``cmpcount_ops`` and
+``micro.sites`` say what is counted. A kernel or
 library call faster than its bound fails the run, since the bound would
 not be one. Any mismatch or exception exits non-zero. The line before the
 last is the kernels' JSON record; the last line is the device record.
@@ -405,6 +415,22 @@ def ladder_bytes(lane_args, trips, info, l_ek, a_cap, pack_cap):
             + info.size * 4)
 
 
+def chain_bytes(n_anc, A2, m3):
+    """(bytes, operations) B4's function needs on one call (numpy
+    ``n_anc``): each read's anchor count and its valid anchor rows (7
+    int32 each), read once; its outputs written once (16 chain records of
+    13 int32, n_out, A2 pre words, the overflow byte). Operations: a test
+    per valid anchor and, for M3, the ceil(log2 n!) comparisons of a
+    comparison sort of a read's n valid anchors; a lower bound."""
+    n = np.minimum(n_anc, A2).clip(0)
+    nbytes = (len(n_anc) * (4 + 16 * 13 * 4 + 4 + 4 * A2 + 1)
+              + 28 * int(n.sum()))
+    ops = int(n.sum())
+    if m3:
+        ops += sum(math.ceil(math.lgamma(k + 1) / math.log(2)) for k in n)
+    return nbytes, ops
+
+
 def cmpcount_ops(B, P, K, t_sorted):
     """The least comparisons K3's function needs on these shapes: on a
     sorted table, one binary search per query (ceil(log2(K + 1)) steps;
@@ -478,6 +504,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from desamba_tpu_torch.engine.device import chain as dc
     from desamba_tpu_torch.engine.device import ladder, plops
     from desamba_tpu_torch.engine.device import rescore_pl as trp
     from desamba_tpu_torch.engine.device.classifier import (A_CAP, M_CAP,
@@ -508,6 +535,10 @@ def main():
     log(f"ptxas fast_ladder_kernel: {b2_ptxas}")
     b3_ptxas = ptxas_lines(built["ladder.cu"], "slow_ladder_kernel")
     log(f"ptxas slow_ladder_kernel: {b3_ptxas}")
+    b4_ptxas = {k: ptxas_lines(built["chain.cu"], k)
+                for k in ("chain_kernel", "m3_kernel")}
+    for k, v in b4_ptxas.items():
+        log(f"ptxas {k}: {v}")
 
     # ---- 2. data ------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -531,21 +562,35 @@ def main():
     opts = Options()
     kernels = {"rescore": trp.rescore_cuda, "cmpcount": compare_count,
                "fast_ladder": ladder.fast_ladder_cuda,
-               "slow_ladder": ladder.slow_ladder_cuda}
+               "slow_ladder": ladder.slow_ladder_cuda,
+               "chain": dc.chain_kernel_cuda, "m3_chain": dc.m3_kernel_cuda}
     eager = {"fast_ladder": ladder.fast_ladder,
-             "slow_ladder": ladder.slow_ladder}
+             "slow_ladder": ladder.slow_ladder,
+             "chain": dc.chain_kernel, "m3_chain": dc.m3_kernel}
     failures = []
 
     def classify(batch, what):
         """A new DeviceClassifier over ``batch``, the kernels' counts (and
-        the eager ladders' runs) zeroed just before and read just after,
-        its SAM held against gold's. Returns (classifier, first rescore
-        input per anchor width, launches, [(kind, iv_cap, arguments)] of
-        the first batch's ladder calls and, of each kind, the first one at
-        the full SP_SET tier)."""
+        the eager ladders' and chaining functions' runs) zeroed just before
+        and read just after, its SAM held against gold's. Returns
+        (classifier, first rescore input per anchor width, launches,
+        [(kind, iv_cap, arguments)] of the first batch's ladder calls and,
+        of each kind, the first one at the full SP_SET tier, and the
+        chaining calls' (anc, n_anc): the first three M2 calls and every M3
+        call)."""
         clf = DeviceClassifier(idx, opts, "cuda")
         captured, ladder_calls = {}, []
+        chain_calls = {"chain": [], "m3_chain": []}
         orig, orig_ladder = clf._k_rescore, clf._k_ladder
+        orig_chain = {"chain": dc.run_chain_kernel,
+                      "m3_chain": dc.run_m3_kernel}
+
+        def capture_chain(name):
+            def run(anc, n_anc):
+                if name == "m3_chain" or len(chain_calls[name]) < 3:
+                    chain_calls[name].append((anc, n_anc))
+                return orig_chain[name](anc, n_anc)
+            return run
 
         def capture(inp):
             captured.setdefault(int(inp.anchors.shape[1]), inp)
@@ -561,6 +606,8 @@ def main():
             return orig_ladder(kind, *a, iv_cap=iv_cap)
 
         clf._k_rescore, clf._k_ladder = capture, capture_ladder
+        dc.run_chain_kernel = capture_chain("chain")
+        dc.run_m3_kernel = capture_chain("m3_chain")
         for k in kernels.values():
             k.launches = 0
         for f in eager.values():
@@ -573,6 +620,8 @@ def main():
         launches = {n: k.launches for n, k in kernels.items()}
         eager_runs = {n: f.runs for n, f in eager.items()}
         clf._k_rescore, clf._k_ladder = orig, orig_ladder
+        dc.run_chain_kernel = orig_chain["chain"]
+        dc.run_m3_kernel = orig_chain["m3_chain"]
         got = "".join(format_result(r, idx.ref_name, opts) for r in res)
         log(f"{what}: {len(batch)} reads in {wall:.3f} s = "
             f"{len(batch) / wall:.1f} reads/s on {kind}")
@@ -592,7 +641,8 @@ def main():
         else:
             log(f"{what}: SAM byte-equal to gold: {len(got.splitlines())} "
                 f"lines")
-        for name in ("rescore", "fast_ladder", "slow_ladder"):
+        for name in ("rescore", "fast_ladder", "slow_ladder", "chain",
+                     "m3_chain"):
             if launches[name] <= 0:
                 failures.append(f"kernel {name} was not launched by the "
                                 f"{what} run")
@@ -601,10 +651,11 @@ def main():
                 failures.append(f"the eager {name} ran {n} times on the "
                                 f"card in the {what} run")
         log(f"{what} launches: " + json.dumps(launches)
-            + "; eager ladder runs " + json.dumps(eager_runs))
-        return clf, captured, launches, ladder_calls
+            + "; eager runs " + json.dumps(eager_runs))
+        return clf, captured, launches, ladder_calls, chain_calls
 
-    dev, captured, launches, ladder_calls = classify(reads, "end to end")
+    dev, captured, launches, ladder_calls, chain_calls = classify(
+        reads, "end to end")
     fb = dev.fallback_stats()
     if fb["slow_path_reads"] <= 0 or fb["m3_path_reads"] <= 0:
         failures.append("the slow path or the M3 path was not taken")
@@ -670,7 +721,7 @@ def main():
         return recs
 
     # ---- 4. long reads ------------------------------------------------------
-    long_clf, long_captured, _, _ = classify(long_batch, "long reads")
+    long_clf, long_captured, _, _, _ = classify(long_batch, "long reads")
     long_recs = check_k1("long reads", long_clf, long_captured)
     if not long_recs or min(r["K"] for r in long_recs) < LONG_READ:
         failures.append("long reads: no rescore batch at a long read's width")
@@ -789,6 +840,63 @@ def main():
             "bound_ms": bms, "bound_by": by,
             "library_ms": None, "library_eager_ms": None})
     del ladder_calls
+
+    # ---- 5d. B4: the chaining kernels on the main path's calls -------------
+    for name, kname, line in (("chain", "chain_kernel", 56),
+                              ("m3_chain", "m3_kernel", 247)):
+        kernel, plain = kernels[name], eager[name]
+        checked = []
+        for i, (anc, n_anc) in enumerate(chain_calls[name]):
+            got = kernel(anc, n_anc)
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            e0.record()
+            exp = plain(anc, n_anc)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms = e0.elapsed_time(e1)
+            ms = cuda_ms(lambda: kernel(anc, n_anc), 20)
+            err = max(int((g.long() - e.long()).abs().max())
+                      for g, e in zip(got, exp))
+            n_h = n_anc.cpu().numpy()
+            nbytes, ops = chain_bytes(n_h, anc.shape[1], name == "m3_chain")
+            bnd = bound(nbytes, ops)
+            B, A2 = anc.shape[:2]
+            log(f"{name} call {i + 1}: B {B}, A2 {A2}, "
+                f"{int((n_h > 0).sum())} reads with anchors, "
+                f"{int(np.minimum(n_h, A2).clip(0).sum())} anchors: kernel "
+                f"{ms:.5f} ms (by events), plain {plain_ms:.1f} ms; bound "
+                f"{bnd[0]:.6f} ms ({bnd[1]}; {nbytes} bytes, {ops} "
+                f"operations); {int(exp[3].sum())} reads overflowed; ptxas "
+                f"{b4_ptxas[kname]}; max_abs_err {err}")
+            if err != 0:
+                failures.append(f"{name} call {i + 1}: kernel differs from "
+                                f"the eager version: max_abs_err {err}")
+            if ms < bnd[0]:
+                failures.append(f"{name} call {i + 1} beat its bound: {ms} "
+                                f"< {bnd[0]} ms")
+            checked.append(dict(ms=ms, plain_ms=plain_ms, err=err,
+                                nbytes=nbytes, ops=ops))
+        if not checked:
+            failures.append(f"no {name} call was captured")
+            continue
+        bms, by = bound(sum(r["nbytes"] for r in checked),
+                        sum(r["ops"] for r in checked))
+        log(f"{name}, {len(checked)} calls: kernel "
+            f"{sum(r['ms'] for r in checked):.5f} ms, plain "
+            f"{sum(r['plain_ms'] for r in checked):.1f} ms, bound "
+            f"{bms:.6f} ms ({by})")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "desamba_tpu_torch/kernels/chain.cu",
+            "replaces": f"desamba_tpu/engine/device/chain.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(r["err"] for r in checked),
+            "ms": sum(r["ms"] for r in checked),
+            "plain_ms": sum(r["plain_ms"] for r in checked),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "library_eager_ms": None})
+    del chain_calls
 
     # ---- 6. gather bench: the compare-count kernel (K3) ---------------------
     dev0 = torch.device("cuda")
@@ -1044,8 +1152,8 @@ def main():
               if r["library_ms"] is not None and r["ms"] > r["library_ms"]]
     log("kernels slower than their library call in a graph: "
         + (", ".join(slower) or "none"))
-    if len(records) != 26:
-        failures.append(f"{len(records)} kernel records, not 26")
+    if len(records) != 28:
+        failures.append(f"{len(records)} kernel records, not 28")
     log(json.dumps({"kernels": records}))
     if failures:
         for f in failures:

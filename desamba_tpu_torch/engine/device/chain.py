@@ -4,6 +4,12 @@ sort + sparse DP, and the rescore prep.
 Counterpart of ``desamba_tpu/engine/device/chain.py``. The unsigned
 compares go through ``_absu`` and ``intops.u32`` at exactly the points the
 JAX code casts to ``U32``; every other compare is a signed int32 one.
+
+M2 and M3 are also hand-written CUDA kernels in ``kernels/chain.cu`` (a
+warp per read): ``run_chain_kernel`` and ``run_m3_kernel`` launch them for
+CUDA tensors (``chain_kernel_cuda``, ``m3_kernel_cuda``) and run the eager
+``chain_kernel`` and ``m3_kernel``, their plain versions, only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ CH_NF = len(CH)
 
 RC_CAP = 8      # rescore chain slots (rescore.C_CAP)
 M3_A2 = 512     # anchor slots for the M3 sub-batch
+SMEM_MAX = 232448   # dynamic shared memory a block may use (227 KB)
 
 
 def _absu(a, b):
@@ -70,6 +77,7 @@ def _resolve_sort(ch, on, n):
 def chain_kernel(anc, n_anc):
     """anc: (B, A2, AF2) int32 in gold insertion order; n_anc: (B,).
     Returns (chains, n_out, pre, overflow) as the JAX ``chain_kernel``."""
+    chain_kernel.runs += 1
     B, A2, _ = anc.shape
     dev = anc.device
     lanes = torch.arange(B, device=dev)
@@ -128,6 +136,62 @@ def chain_kernel(anc, n_anc):
     return chs, n_out, pre, ovf
 
 
+chain_kernel.runs = 0   # calls of the plain version
+
+
+def _launch(entry, anc, n_anc, *extra):
+    """Launch ``entry`` of ``chain_lib()`` on CUDA tensors: (chains, n_out,
+    pre, ovf) as the plain versions return them. A refused launch raises."""
+    from ...kernels.build import chain_lib
+
+    if anc.device.type != "cuda" or n_anc.device != anc.device:
+        raise ValueError(f"{entry}: the tensors must be on one CUDA device")
+    if (anc.dim() != 3 or anc.shape[2] != AF2 or n_anc.shape != anc.shape[:1]
+            or anc.dtype != I32 or n_anc.dtype != I32
+            or not anc.is_contiguous() or not n_anc.is_contiguous()):
+        raise ValueError(f"{entry}: anc must be a contiguous (B, A2, {AF2}) "
+                         f"int32 tensor and n_anc a contiguous (B,) one")
+    B, A2, _ = anc.shape
+    dev = anc.device
+    chains = torch.empty((B, C2, CH_NF), dtype=I32, device=dev)
+    n_out = torch.empty((B,), dtype=I32, device=dev)
+    pre = torch.empty((B, A2), dtype=I32, device=dev)
+    ovf = torch.empty((B,), dtype=torch.bool, device=dev)
+    rc = getattr(chain_lib(), entry)(
+        anc.data_ptr(), n_anc.data_ptr(), chains.data_ptr(), n_out.data_ptr(),
+        pre.data_ptr(), ovf.data_ptr(), B, A2, *extra,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+    return chains, n_out, pre, ovf
+
+
+def chain_kernel_cuda(anc, n_anc):
+    """Launch the M2 kernel (a warp per read) on CUDA tensors;
+    returns what ``chain_kernel`` returns."""
+    out = _launch("chain_m2_launch", anc, n_anc)
+    chain_kernel_cuda.launches += 1
+    return out
+
+
+chain_kernel_cuda.launches = 0
+
+
+def _run(kernel, plain, anc, n_anc):
+    """A chaining function on its inputs' device: the kernel for CUDA
+    tensors, the eager plain version for CPU tensors. There is no other
+    path: a failed build or launch raises."""
+    if anc.device.type == "cuda":
+        return kernel(anc, n_anc)
+    if anc.device.type == "cpu":
+        return plain(anc, n_anc)
+    raise ValueError(f"unsupported device {anc.device}")
+
+
+def run_chain_kernel(anc, n_anc):
+    return _run(chain_kernel_cuda, chain_kernel, anc, n_anc)
+
+
 def _chain_info(chains, n_out, ovf):
     return torch.stack([n_out, chains[:, 0, H_ANUM], chains[:, 0, H_SUM],
                         ovf.to(I32)], dim=1)
@@ -150,7 +214,7 @@ def chain_step(packed, gidx, n_anc):
     """Assemble per-read anchors from the ladder pack and chain them.
     Returns (chains, n_out, pre, ovf, anc3, info) as the JAX function."""
     anc = _gather_anchors(packed, gidx)
-    chains, n_out, pre, ovf = chain_kernel(anc, n_anc)
+    chains, n_out, pre, ovf = run_chain_kernel(anc, n_anc)
     return chains, n_out, pre, ovf, anc[:, :, :3], \
         _chain_info(chains, n_out, ovf)
 
@@ -188,6 +252,7 @@ def m3_kernel(anc, n_anc):
     """Sort + sparse-DP chaining for >=50-anchor reads (gold
     chain_insert_m3). Returns (chains, n_out, pre, ovf) with ``pre`` in
     ORIGINAL anchor-slot space, as the JAX ``m3_kernel``."""
+    m3_kernel.runs += 1
     B, A2, _ = anc.shape
     dev = anc.device
     lanes = torch.arange(B, device=dev)
@@ -292,9 +357,37 @@ def m3_kernel(anc, n_anc):
     return chs[:, :C2], n_out.clamp(max=C2), pre_orig, n_out > C2
 
 
+m3_kernel.runs = 0   # calls of the plain version
+
+
+def m3_smem_bytes(A2: int) -> int:
+    """Dynamic shared memory of one block of the M3 kernel (its
+    ``m3_smem_bytes``): 2 A2 words of sort keys and 23 arrays of A2."""
+    return 25 * A2 * 4
+
+
+def m3_kernel_cuda(anc, n_anc):
+    """Launch the M3 kernel (a warp, one block, per read) on CUDA tensors;
+    returns what ``m3_kernel`` returns."""
+    A2 = anc.shape[1] if anc.dim() == 3 else 0
+    if A2 < C2 or m3_smem_bytes(A2) > SMEM_MAX:
+        raise ValueError(f"m3 kernel: {A2} anchor slots; it takes {C2} to "
+                         f"{SMEM_MAX // m3_smem_bytes(1)}")
+    out = _launch("chain_m3_launch", anc, n_anc, m3_smem_bytes(A2))
+    m3_kernel_cuda.launches += 1
+    return out
+
+
+m3_kernel_cuda.launches = 0
+
+
+def run_m3_kernel(anc, n_anc):
+    return _run(m3_kernel_cuda, m3_kernel, anc, n_anc)
+
+
 def m3_chain_step(packed, gidx, n_anc):
     """chain_step for the >=50-anchor sub-batch (M3_A2-wide anchors)."""
     anc = _gather_anchors(packed, gidx)
-    chains, n_out, pre, ovf = m3_kernel(anc, n_anc)
+    chains, n_out, pre, ovf = run_m3_kernel(anc, n_anc)
     return chains, n_out, pre, ovf, anc[:, :, :3], \
         _chain_info(chains, n_out, ovf)

@@ -18,7 +18,7 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("rescore.cu", "cmpcount.cu", "plops.cu", "micro.cu", "caps.cu",
-           "ladder.cu")
+           "ladder.cu", "chain.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -139,3 +139,10 @@ def ladder_lib():
     return _bound("ladder.cu", {"ladder_fast_launch": "pp",
                                 "ladder_slow_launch": "pp",
                                 "ladder_args_size": ""})
+
+
+def chain_lib():
+    # anc, n_anc, chains, n_out, pre, ovf, B, A2 (M3: its shared memory
+    # bytes), stream
+    return _bound("chain.cu", {"chain_m2_launch": "p" * 6 + "ii" + "p",
+                               "chain_m3_launch": "p" * 6 + "iii" + "p"})
