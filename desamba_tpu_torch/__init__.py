@@ -42,6 +42,8 @@ at first use (``kernels/build.py``): the per-read 9-mer SDP rescore
 ``tools/cmpcount.py``), the tile helpers (``plops.cuh`` and its harness
 ``plops.cu``, wrapped by ``engine/device/plops.py``), the primitive benches
 (``micro.cu``, ``tools/micro.py``), the capability probes (``caps.cu``,
-``tools/caps.py``) and the fast ladder (``ladder.cu`` over the device
-functions of ``ladder.cuh``, wrapped by ``engine/device/ladder.py``).
+``tools/caps.py``), the fast and slow ladders (``ladder.cu`` over the
+device functions of ``ladder.cuh``, a warp a lane, wrapped by
+``engine/device/ladder.py``) and the M2/M3 chaining (``chain.cu``, wrapped
+by ``engine/device/chain.py``).
 """

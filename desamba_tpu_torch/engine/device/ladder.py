@@ -12,7 +12,7 @@ the port takes ALL active lanes each trip (``bl`` = the live count). The
 results are the same lane for lane; only the trip count differs.
 
 Each ladder is also a hand-written CUDA kernel in ``kernels/ladder.cu``
-(one thread runs one lane's whole ladder): ``run_fast_ladder`` and
+(one warp runs one lane's whole ladder): ``run_fast_ladder`` and
 ``run_slow_ladder`` launch them for CUDA tensors (``fast_ladder_cuda``,
 ``slow_ladder_cuda``) and run the eager ``fast_ladder`` and
 ``slow_ladder``, their plain versions, only for CPU tensors.

@@ -135,10 +135,12 @@ def caps_lib():
 
 
 def ladder_lib():
-    # a pointer to the LadderArgs block, stream; the struct's size
+    # a pointer to the LadderArgs block, stream; the struct's size; a
+    # block's shared memory at an SP_SET capacity
     return _bound("ladder.cu", {"ladder_fast_launch": "pp",
                                 "ladder_slow_launch": "pp",
-                                "ladder_args_size": ""})
+                                "ladder_args_size": "",
+                                "ladder_smem_bytes": "i"})
 
 
 def chain_lib():

@@ -1,4 +1,4 @@
-// The classify ladders' device functions, one lane a thread (src/cly.c
+// The classify ladders' device functions, one lane a warp (src/cly.c
 // bwt_MEM_search, map_seed and their helpers).
 //
 // Each function here is the per-lane body of the port's function of the
@@ -6,32 +6,51 @@
 // lce_backward, collect_backward, find_bit_low, find_bit_high and
 // ivset_walk (textwalk.py), interval_sa, interval_rank_chase and mem_probe
 // (fm.py), get_uni, get_ref13, get_new_ed and map_seed (mapseed.py). The
-// port runs them as lockstep (N,) tensor loops; here one thread runs one
-// lane's loop to its end, so every `while bool(run.any())` becomes a plain
-// loop on the lane's own condition. The arithmetic is the port's, step for
-// step: int where the port holds int32, uint32_t exactly where it goes
-// through intops.u32 / M32 (the FM intervals, the hash13 bucket, the
+// port runs them as lockstep (N,) tensor loops; here one warp runs one
+// lane's loops to their end, so every `while bool(run.any())` becomes a
+// plain loop on the lane's own condition. The arithmetic is the port's,
+// step for step: int where the port holds int32, uint32_t exactly where it
+// goes through intops.u32 / M32 (the FM intervals, the hash13 bucket, the
 // rank words, the suffix length), JAX's clamping gathers (take) and the
 // port's explicit clamps where each stands.
 //
+// The lane's serial chain (the ladder's trips, the 13-mer jumpstart, the
+// rank chase, map_seed's prefix and suffix extensions, lv) runs in all 32
+// threads of its warp at once, on the same values, so every branch around
+// a warp collective is the same in every thread. The work that does not
+// depend on itself goes across the warp, thread t taking item t:
+//   (a) map_seed's fan-out over the unitig's reference occurrences, 32 a
+//       round; a ballot and the count of the set bits below t give each
+//       emitted anchor its slot, in occurrence order;
+//   (b) interval_sa's bucket rows, an LCE each; the order statistics the
+//       chase's closed form needs come from ranking by counting;
+//   (c) mem_probe's result rows: a row's LCE, sample search and isa loads
+//       in thread k for row k (the SP_SET walks between them go one row
+//       after another, in row order, since each reads what the last wrote);
+//   (d) the SP_SET scan, a slot a thread, one max over the warp.
+// The functions that stay serial (lv, lce_backward, the bit searches,
+// get_new_ed, ...) are called by every thread, or by one thread for its own
+// item.
+//
 // One rule differs, and only in which path computes a result: the port's
 // mem_probe sends a lane to the rank chase when the batch's running sum of
-// bucket rows passes the shared SA pool (2 N rows); a thread has its own
-// SA_CAP-row buffer, so every bucket of at most SA_CAP rows takes the
+// bucket rows passes the shared SA pool (2 N rows); a warp has its own
+// SA_CAP-row scratch, so every bucket of at most SA_CAP rows takes the
 // position-space path here. Both paths give the same rows in the same
 // order (tests/test_torch_ladder_kernel.py holds it on a lane set that
 // overflows the pool).
 //
-// The SP_SET of a lane lives in device memory (iv_cap intervals); only its
-// first min(niv, iv_cap) slots can be non-empty (every write goes to slot
-// min(niv, iv_cap - 1) and a reset sets niv to 0), so the covered-point
-// scans read those and a reset only zeroes the counts: the same answers as
-// the port's scans over all iv_cap slots of a cleared set. The hot-tier
-// overflow (slot iv_cap - 1 overwritten, the sticky bit set) is the port's.
+// The SP_SET of a lane lives in its warp's shared memory (iv_cap
+// intervals); only its first min(niv, iv_cap) slots can be non-empty (every
+// write goes to slot min(niv, iv_cap - 1) and a reset sets niv to 0), so
+// the covered-point scans read those and a reset only zeroes the counts:
+// the same answers as the port's scans over all iv_cap slots of a cleared
+// set. The hot-tier overflow (slot iv_cap - 1 overwritten, the sticky bit
+// set) is the port's.
 //
 // Header only: kernels/ladder.cu holds the two ladder kernels (fast and
 // slow) and their launchers. It compiles as host C++ over
-// tests/cuda_host/block_emu.h, which is how the CPU tests run it.
+// tests/cuda_host/warp_emu.h, which is how the CPU tests run it.
 #pragma once
 #include <cstdint>
 
@@ -329,8 +348,35 @@ __device__ inline bool find_bit_high(const uint32_t* bits, int nw, int lo,
   }
 }
 
-// A lane's SP_SET: disjoint position intervals [lo, hi] in iv (cap slots)
-// and the counts [intervals used, positions, overflowed].
+// ---- the warp ------------------------------------------------------------------
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int WARP = 32;
+constexpr int INT_TOP = 0x7FFFFFFF;
+constexpr int INT_BOT = -INT_TOP - 1;
+
+// the bits of the warp's threads below thread t
+__device__ inline unsigned lanes_below(int t) { return (1u << t) - 1u; }
+
+// A warp's shared memory, in ints: its scratch, then its SP_SET (2 iv_cap).
+// The scratch holds a bucket's LCEs (interval_sa), the result rows'
+// positions and walk lengths (mem_probe), and the slow ladder's top list
+// with its merge's new lengths.
+constexpr int SCR_LDEN = 0;                          // SA_CAP
+constexpr int SCR_P = SCR_LDEN + SA_CAP;             // MEM_SEARCH_SLOW
+constexpr int SCR_NAT = SCR_P + MEM_SEARCH_SLOW;     // MEM_SEARCH_SLOW
+constexpr int SCR_NEW = SCR_NAT + MEM_SEARCH_SLOW;   // MEM_SEARCH_SLOW
+constexpr int TOP_NF = 6;                            // a MEM record
+constexpr int SCR_TOP = SCR_NEW + MEM_SEARCH_SLOW;   // MEM_SEARCH_SLOW records
+constexpr int SCR_WORDS = SCR_TOP + MEM_SEARCH_SLOW * TOP_NF;
+static_assert(SCR_WORDS % 4 == 0, "the SP_SET starts 16-byte aligned");
+
+__host__ __device__ inline int warp_words(int iv_cap) {
+  return SCR_WORDS + 2 * iv_cap;
+}
+
+// A lane's SP_SET: disjoint position intervals [lo, hi] in iv (cap slots of
+// the warp's shared memory) and the counts [intervals used, positions,
+// overflowed], the same in every thread of the warp.
 struct IvSet {
   int* iv;
   int cap;
@@ -338,23 +384,32 @@ struct IvSet {
 };
 
 // The reference's insert sequence for one row walk (textwalk.ivset_walk)
-// at position p with natural walk length nat. Returns dup0 (p already
-// covered: no walk); sets abort (the walk met an earlier one) and wlen.
+// at position p with natural walk length nat, by the whole warp (p and nat
+// the same in every thread). Thread t scans slots t, t + 32, ...; one max
+// over the warp says whether a slot covers p (the serial scan stops at the
+// first, with the same answer) or else gives qd, the largest point below p
+// that a slot reaches in [p - nat, p - 1] (a max: the slots' order does
+// not matter). Thread slot % 32 writes the slot: it is the one thread that
+// reads the slot in later scans, so no other thread waits for the write.
+// Returns dup0 (p already covered: no walk); sets abort (the walk met an
+// earlier one) and wlen.
 __device__ inline bool ivset_walk(IvSet& S, int p, int nat, bool& abort,
-                                  int& wlen) {
+                                  int& wlen, int t) {
   if (S.size == SP_SET_CAP) S.niv = S.size = 0;         // reset0
   const int used = imin(S.niv, S.cap);
-  int qd = -1;
   const int a = p - nat, b = p - 1;
-  for (int k = 0; k < used; ++k) {
+  int qd = -1;
+  for (int k = t; k < used; k += WARP) {
     const int lo = S.iv[2 * k], hi = S.iv[2 * k + 1];
-    if (lo <= p && p <= hi) {
-      abort = false;
-      wlen = nat;
-      return true;
-    }
     const int c = imin(hi, b);
-    if (c >= lo && c >= a) qd = imax(qd, c);
+    if (lo <= p && p <= hi) qd = INT_TOP;
+    else if (c >= lo && c >= a) qd = imax(qd, c);
+  }
+  qd = __reduce_max_sync(FULL, qd);
+  if (qd == INT_TOP) {
+    abort = false;
+    wlen = nat;
+    return true;
   }
   const int s1 = S.size + 1;
   const int j_r = SP_SET_CAP + 1 - s1;
@@ -363,8 +418,10 @@ __device__ inline bool ivset_walk(IvSet& S, int p, int nat, bool& abort,
   wlen = abort ? j_dup - 1 : nat;
   const bool midreset = !abort && nat >= j_r;
   const int slot = midreset ? 0 : imin(S.niv, S.cap - 1);
-  S.iv[2 * slot] = midreset ? p - nat : p - wlen;
-  S.iv[2 * slot + 1] = midreset ? p - j_r : p;
+  if (t == (slot & (WARP - 1))) {     // the thread whose scans read it
+    S.iv[2 * slot] = midreset ? p - nat : p - wlen;
+    S.iv[2 * slot + 1] = midreset ? p - j_r : p;
+  }
   if (!midreset && S.niv >= S.cap) S.ovf = 1;
   S.niv = midreset ? 1 : S.niv + 1;
   S.size = midreset ? nat - j_r + 1 : s1 + wlen;
@@ -428,32 +485,40 @@ __device__ inline Interval interval_rank_chase(const LadderArgs& A, int row,
   }
 }
 
+// The k-th largest (from 0) of the bucket's SA_CAP values v, thread s < SA_CAP
+// holding value s and gt = the count of values above it: the least value
+// with at most k values above it.
+__device__ inline int kth_largest(int v, int gt, int k, int t) {
+  return -__reduce_max_sync(FULL, t < SA_CAP && gt <= k ? -v : INT_BOT);
+}
+
 // Position-space interval phase for a bucket of n0 <= SA_CAP rows
-// (fm._interval_sa): one LCE a row, then the chase's stop in closed form.
-// Writes the first R survivors' walk positions, in row order, to w_pos.
+// (fm._interval_sa), by the whole warp: thread s < n0 loads row s's
+// position and runs its LCE, then the chase's stop in closed form. Writes
+// the first R survivors' walk positions, in row order, to scr[SCR_P..]
+// (read after a __syncwarp).
 template <int R>
 __device__ inline Interval interval_sa(const LadderArgs& A,
                                        const uint32_t* qrow, int col_off,
                                        int str_idx, uint32_t sp0, int n0,
-                                       int l_min_mth, int* w_pos) {
-  int lden[SA_CAP], pden[SA_CAP], ls[SA_CAP];
+                                       int l_min_mth, int* scr, int t) {
   const int cap_l = imax(str_idx - L_PRE_IDX + 1, 0);
-  for (int s = 0; s < SA_CAP; ++s) {
-    lden[s] = -1;
-    pden[s] = 0;
-    if (s < n0) {
-      const int rowix = (int)(sp0 + (uint32_t)s);
-      pden[s] = A.row_pos[clampi(rowix, 0, A.n_text - 1)];
-      lden[s] = lce_backward(A, qrow, col_off, str_idx - L_PRE_IDX,
-                             pden[s] - 1, cap_l);
-    }
-    // insertion into the descending order
-    int k = s;
-    for (; k > 0 && ls[k - 1] < lden[s]; --k) ls[k] = ls[k - 1];
-    ls[k] = lden[s];
+  int lden = -1, pden = 0;
+  if (t < n0) {
+    pden = A.row_pos[clampi((int)(sp0 + (uint32_t)t), 0, A.n_text - 1)];
+    lden = lce_backward(A, qrow, col_off, str_idx - L_PRE_IDX, pden - 1,
+                        cap_l);
   }
-  const int a_m1 = R + 1 <= SA_CAP ? imax(ls[R < SA_CAP ? R : 0], 0) : 0;
-  const int a_2 = imax(ls[1], 0);
+  __syncwarp();                       // the last bucket's reads are done
+  if (t < SA_CAP) scr[SCR_LDEN + t] = lden;
+  __syncwarp();
+  int gt = 0;
+  if (t < SA_CAP)
+    for (int s = 0; s < SA_CAP; ++s) gt += scr[SCR_LDEN + s] > lden;
+  // the port's ls[R] and ls[1], ls the SA_CAP values in descending order
+  int a_m1 = 0;
+  if (R + 1 <= SA_CAP) a_m1 = imax(kth_largest(lden, gt, R, t), 0);
+  const int a_2 = imax(kth_largest(lden, gt, 1, t), 0);
   const int gmin_k = l_min_mth - 1 - L_PRE_IDX;
   const int k_a = imax(a_m1, gmin_k);
   const int k_b0 = imax(str_idx - L_PRE_IDX, gmin_k);
@@ -464,69 +529,87 @@ __device__ inline Interval interval_sa(const LadderArgs& A,
   const bool fail_off = k_star >= k_off;
   const bool is_b = k_star == k_b && !fail_off;
   const int k_eff = imin(k_star, k_off);
-  int n_new = 0;
-  for (int s = 0; s < SA_CAP; ++s) {
-    if (s < n0 && lden[s] >= k_eff + 1) {
-      if (n_new < R) w_pos[n_new] = pden[s] - (k_eff + 1);
-      ++n_new;
-    }
-  }
+  const bool keep = t < n0 && lden >= k_eff + 1;
+  const unsigned kept = __ballot_sync(FULL, keep);
+  const int n_new = popc32(kept);
+  const int at = popc32(kept & lanes_below(t));
+  if (keep && at < R) scr[SCR_P + at] = pden - (k_eff + 1);
   Interval r{L_PRE_IDX + k_eff, str_idx - L_PRE_IDX - (k_eff + 1), 0,
              fail_off || is_b || n_new == 0, 0};
   r.n_rows = r.fail ? 0 : imin(n_new, R);
   return r;
 }
 
-// One MEM probe's result rows (the port's res_* columns of one lane)
-template <int R>
-struct MemRows {
-  int len[R], sp[R], sa[R], sa_l[R];
-  bool sa_ok[R], valid[R];
+// One MEM probe's result row (the port's res_* columns of one lane's row),
+// in thread k for row k
+struct Row {
+  int len, sp, sa, sa_l;
+  bool sa_ok, valid;
 };
 
-// One backward MEM probe (fm.mem_probe, bwt_MEM_search): the 13-mer
-// jumpstart, the interval phase, then per result row the walk in position
-// space through the lane's SP_SET to a sampled position.
+// One backward MEM probe (fm.mem_probe, bwt_MEM_search) by the whole warp:
+// the 13-mer jumpstart, the interval phase, then per result row the walk in
+// position space through the lane's SP_SET to a sampled position. Row k's
+// LCE, sample search and isa loads run in thread k; the SP_SET walks, one
+// row after another. Returns thread t's row t (not valid past R).
 template <int R>
-__device__ inline void mem_probe(const LadderArgs& A, int row, int col_off,
-                                 int str_idx, int pre_v, IvSet& S,
-                                 int l_min_mth, MemRows<R>& out) {
-  for (int k = 0; k < R; ++k) {
-    out.len[k] = out.sp[k] = out.sa[k] = out.sa_l[k] = 0;
-    out.sa_ok[k] = out.valid[k] = false;
-  }
+__device__ inline Row mem_probe(const LadderArgs& A, int row, int col_off,
+                                int str_idx, int pre_v, IvSet& S,
+                                int l_min_mth, int* scr, int t) {
+  Row out{0, 0, 0, 0, false, false};
   const uint32_t* qrow = A.codes_pk + (size_t)row * A.codes_pk_w;
   const uint32_t sp0 = A.hash13[take_i(pre_v, A.n_hash13)];
   const uint32_t ep0 = A.hash13[take_i(pre_v + 1, A.n_hash13)];
   const int n0 = (int)(ep0 - sp0);
   const bool big = n0 > SA_CAP;
-  int w_pos[R];
-  const Interval iv =
-      big ? interval_rank_chase(A, row, col_off, str_idx, sp0, ep0, R,
-                                l_min_mth)
-          : interval_sa<R>(A, qrow, col_off, str_idx, sp0, n0, l_min_mth,
-                           w_pos);
-  const int wmax = imax(str_idx - iv.match_len, 0);
-  for (int k = 0; k < iv.n_rows; ++k) {
-    const int p =
-        big ? A.row_pos[clampi((int)(iv.nsp + (uint32_t)k), 0, A.n_text - 1)]
-            : w_pos[k];
-    const int nat = lce_backward(A, qrow, col_off, iv.str_i, p - 1, wmax);
-    bool abort;
-    int wlen;
-    if (ivset_walk(S, p, nat, abort, wlen)) continue;     // dup0: no walk
-    const int T = (abort || wlen < wmax) ? wlen : wmax - 1;
-    int qs = 0;
-    const bool found =
-        T >= 0 && find_bit_low(A.samp_bits, A.n_samp, p - T, p, qs);
-    const int total = (abort ? -1000 : wlen) + iv.match_len + 1;
-    out.len[k] = total;
-    out.sp[k] = A.isa[clampi(p - wlen, 0, A.n_text - 1)];
-    out.sa[k] = found ? A.isa[clampi(qs, 0, A.n_text - 1)] : 0;
-    out.sa_ok[k] = found;
-    out.sa_l[k] = found ? (p - qs) - T : -(T + 1);
-    out.valid[k] = total >= l_min_mth;
+  int p = 0;
+  Interval iv;
+  if (big) {
+    iv = interval_rank_chase(A, row, col_off, str_idx, sp0, ep0, R,
+                             l_min_mth);
+    if (t < iv.n_rows)
+      p = A.row_pos[clampi((int)(iv.nsp + (uint32_t)t), 0, A.n_text - 1)];
+  } else {
+    iv = interval_sa<R>(A, qrow, col_off, str_idx, sp0, n0, l_min_mth, scr,
+                        t);
   }
+  if (iv.n_rows == 0) return out;
+  __syncwarp();                       // interval_sa's positions are written
+  const bool mine = t < iv.n_rows;
+  if (mine && !big) p = scr[SCR_P + t];
+  const int wmax = imax(str_idx - iv.match_len, 0);
+  const int nat =
+      mine ? lce_backward(A, qrow, col_off, iv.str_i, p - 1, wmax) : 0;
+  if (mine) {
+    scr[SCR_P + t] = p;
+    scr[SCR_NAT + t] = nat;
+  }
+  __syncwarp();
+  bool dup = true, abort = false;
+  int wlen = 0;
+  for (int k = 0; k < iv.n_rows; ++k) {
+    bool ab;
+    int wl;
+    const bool d = ivset_walk(S, scr[SCR_P + k], scr[SCR_NAT + k], ab, wl, t);
+    if (t == k) {
+      dup = d;
+      abort = ab;
+      wlen = wl;
+    }
+  }
+  if (!mine || dup) return out;       // dup0: no walk
+  const int T = (abort || wlen < wmax) ? wlen : wmax - 1;
+  int qs = 0;
+  const bool found =
+      T >= 0 && find_bit_low(A.samp_bits, A.n_samp, p - T, p, qs);
+  const int total = (abort ? -1000 : wlen) + iv.match_len + 1;
+  out.len = total;
+  out.sp = A.isa[clampi(p - wlen, 0, A.n_text - 1)];
+  out.sa = found ? A.isa[clampi(qs, 0, A.n_text - 1)] : 0;
+  out.sa_ok = found;
+  out.sa_l = found ? (p - qs) - T : -(T + 1);
+  out.valid = total >= l_min_mth;
+  return out;
 }
 
 // ---- mapseed.py --------------------------------------------------------------
@@ -634,14 +717,17 @@ __device__ inline void get_new_ed(const LadderArgs& A, const uint32_t* qrow,
   ed = lv(t, q, clampi(length, 0, LV_L));
 }
 
-// One map_seed (mapseed.map_seed_lanes for one lane): locate the MEM's
-// unitig (through its sampled row, or a walk to one), extend with LV on both
-// sides, then emit one anchor per reference occurrence of the unitig into
-// anc[a_cnt] while a_cnt < a_cap, counting every one. Returns max_s.
+// One map_seed (mapseed.map_seed_lanes for one lane) by the whole warp:
+// locate the MEM's unitig (through its sampled row, or a walk to one) and
+// extend with LV on both sides, in every thread; then emit one anchor per
+// reference occurrence of the unitig into anc[a_cnt] while a_cnt < a_cap,
+// counting every one: thread t takes occurrences t, t + 32, ... of each
+// round of 32, and a ballot keeps the occurrence order. Returns max_s.
 __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
                                int read_len, int direction, int seed_id,
                                int sp_row, int l_m, bool sa_ok, int sa_row,
-                               int sa_l, int q_off, int* anc, int& a_cnt) {
+                               int sa_l, int q_off, int* anc, int& a_cnt,
+                               int t) {
   const uint32_t* qrow = A.codes_pk + (size_t)ridx * A.codes_pk_w;
   const int kw = A.codes_pk_w;
   const int blen = A.buf_len[ridx];
@@ -740,46 +826,57 @@ __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
   const bool any_rs = rs_l || rs_r;
   int max_s = 0;
   if (live2 && !huge) {
-    for (int ci = rl_s; ci < rl_e; ++ci) {
+    for (int c0 = rl_s; c0 < rl_e; c0 += WARP) {
+      const int ci = c0 + t;
       const int cic = clampi(ci, 0, A.n_rp - 1);
-      const int g_off = A.rp_global_off[cic];
       int lx_l = 0, a_ll = l_pre, a_le = d_pre;
-      if (rs_l)
-        get_new_ed(A, qrow, blen, base, q_off, g_off + u_off - 1, read_len,
-                   true, a_le, a_ll, lx_l);
       int lx_r = 0, a_rl = l_suf, a_re = d_suf;
-      if (rs_r)
-        get_new_ed(A, qrow, blen, base, q_off + l_m + 1, g_off + u_off + l_m,
-                   read_len, false, a_re, a_rl, lx_r);
-      const int a_mtch = any_rs ? l_m + lx_l + lx_r : l_m;
-      const int a_score =
-          any_rs ? A.q_mem[clampi(a_mtch, 0, nq - 1)] +
-                       A.q_lv[clampi(a_le, 0, A.q_lv_rows - 1) * A.q_lv_cols +
-                              clampi(a_ll, 0, A.q_lv_cols - 1)] +
-                       A.q_lv[clampi(a_re, 0, A.q_lv_rows - 1) * A.q_lv_cols +
-                              clampi(a_rl, 0, A.q_lv_cols - 1)]
-                 : s;
-      if (any_rs && a_score < MIN_S_2) continue;      // not emitted
-      max_s = imax(max_s, a_score);
-      if (a_cnt < A.a_cap) {
-        const int ref_id = A.rp_ref_id[cic];
-        const int glob = g_off + u_off - lx_l;
-        int* rec = anc + (size_t)a_cnt * A_NF;
-        rec[0] = a_mtch;
-        rec[1] = a_score;
-        rec[2] = a_ll;
-        rec[3] = a_le;
-        rec[4] = a_rl;
-        rec[5] = a_re;
-        rec[6] = direction;
-        rec[7] = glob;
-        rec[8] = ref_id;
-        rec[9] = glob - A.ref_off[take_i(ref_id, A.n_ref)];
-        rec[10] = q_off + 1 - lx_l;
-        rec[11] = seed_id;
+      int g_off = 0, a_mtch = l_m, a_score = s;
+      bool emit = false;
+      if (ci < rl_e) {
+        g_off = A.rp_global_off[cic];
+        if (rs_l)
+          get_new_ed(A, qrow, blen, base, q_off, g_off + u_off - 1, read_len,
+                     true, a_le, a_ll, lx_l);
+        if (rs_r)
+          get_new_ed(A, qrow, blen, base, q_off + l_m + 1,
+                     g_off + u_off + l_m, read_len, false, a_re, a_rl, lx_r);
+        if (any_rs) {
+          a_mtch = l_m + lx_l + lx_r;
+          a_score =
+              A.q_mem[clampi(a_mtch, 0, nq - 1)] +
+              A.q_lv[clampi(a_le, 0, A.q_lv_rows - 1) * A.q_lv_cols +
+                     clampi(a_ll, 0, A.q_lv_cols - 1)] +
+              A.q_lv[clampi(a_re, 0, A.q_lv_rows - 1) * A.q_lv_cols +
+                     clampi(a_rl, 0, A.q_lv_cols - 1)];
+        }
+        emit = !(any_rs && a_score < MIN_S_2);
       }
-      ++a_cnt;
+      const unsigned em = __ballot_sync(FULL, emit);
+      const int slot = a_cnt + popc32(em & lanes_below(t));
+      if (emit) {
+        max_s = imax(max_s, a_score);
+        if (slot < A.a_cap) {
+          const int ref_id = A.rp_ref_id[cic];
+          const int glob = g_off + u_off - lx_l;
+          int* rec = anc + (size_t)slot * A_NF;
+          rec[0] = a_mtch;
+          rec[1] = a_score;
+          rec[2] = a_ll;
+          rec[3] = a_le;
+          rec[4] = a_rl;
+          rec[5] = a_re;
+          rec[6] = direction;
+          rec[7] = glob;
+          rec[8] = ref_id;
+          rec[9] = glob - A.ref_off[take_i(ref_id, A.n_ref)];
+          rec[10] = q_off + 1 - lx_l;
+          rec[11] = seed_id;
+        }
+      }
+      a_cnt += popc32(em);
     }
+    max_s = __reduce_max_sync(FULL, max_s);
   }
   return huge ? 50 : max_s;
 }

@@ -1,11 +1,14 @@
-// kernels/ladder.cu compiled as host C++ over block_emu.h: ladder_emulate
-// and ladder_slow_emulate run fast_ladder_kernel's and slow_ladder_kernel's
-// grids on the CPU, block by block, with the launcher's LadderArgs (no
-// stream). `reverse` runs the blocks from the last to the first and each
-// block's threads from n-1 to 0 (the kernels have no barrier, so a lane that
-// read another's state would show in one order). Returns 0, or 1 with the
-// reason in ladder_emu_error.
-#include "block_emu.h"
+// kernels/ladder.cu compiled as host C++ over warp_emu.h: ladder_emulate and
+// ladder_slow_emulate run fast_ladder_kernel's and slow_ladder_kernel's
+// grids on the CPU, warp by warp (a warp runs one lane), with the
+// launcher's LadderArgs (no stream) and shared memory. `reverse` runs each
+// warp's 32 threads from 31 to 0 between collectives, so a shared-memory
+// write that another thread reads without a __syncwarp between them shows
+// in one of the two orders. Returns 0, or 1 with the reason in
+// ladder_emu_error.
+#include "warp_emu.h"
+
+alignas(16) int ladder_smem[232448 / 4];   // one block's dynamic shared memory
 
 #include "ladder.cu"
 
@@ -15,18 +18,17 @@ extern "C" const char* ladder_emu_error() { return last_error; }
 
 template <typename Kernel>
 static int emulate(const lad::LadderArgs* a, int reverse, Kernel kernel) {
-  const int blocks = (a->nb + LADDER_THREADS - 1) / LADDER_THREADS;
-  for (int k = 0; k < blocks; ++k) {
-    const int b = reverse ? blocks - 1 - k : k;
-    const char* err = bemu::run_block(
-        b, LADDER_THREADS, reverse != 0, [&] { kernel(*a); }, blocks);
-    if (err) {
-      last_error = err;
-      return 1;
-    }
+  const int smem = ladder_smem_bytes(a->iv_cap);
+  if (smem == 0 || (size_t)smem > sizeof(ladder_smem)) {
+    last_error = "the SP_SET does not fit a block's shared memory";
+    return 1;
   }
-  last_error = "";
-  return 0;
+  std::memset(ladder_smem, 0xA5, sizeof(ladder_smem));   // starts undefined
+  const char* err =
+      emu::run((a->nb + LADDER_WARPS - 1) / LADDER_WARPS, LADDER_THREADS,
+               reverse != 0, [&] { kernel(*a); });
+  last_error = err ? err : "";
+  return err ? 1 : 0;
 }
 
 extern "C" int ladder_emulate(const lad::LadderArgs* a, int reverse) {

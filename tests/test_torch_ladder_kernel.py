@@ -1,6 +1,6 @@
 """The fast-ladder CUDA kernel's own source (kernels/ladder.cu over
-kernels/ladder.cuh), compiled as host C++ over tests/cuda_host/block_emu.h
-and run on the CPU, == the JAX ``fast_ladder`` and the port's eager
+kernels/ladder.cuh, a warp per lane), compiled as host C++ over
+tests/cuda_host/warp_emu.h and run on the CPU, == the JAX ``fast_ladder`` and the port's eager
 ``fast_ladder`` (its plain version), bit for bit (tolerance 0): packed
 anchors, the (N, 4) info rows and the pack overflow.
 
@@ -8,12 +8,16 @@ The lane sets are every fast-ladder call of ``test_torch_ladder``'s
 ``captured`` fixture (noisy reads on the small genome, the repeat corpus)
 and of reads from a family of six strains 1-3 % apart (13-mer buckets of
 several rows that extend far, where the position-space interval phase
-ranks them), at the captured SP_SET tier, at the full tier
-(``iv_cap=None``, 512), at ``iv_cap`` 1 and 2 (hot-tier overflows) and on a
-lane set whose first probes overflow the eager port's shared SA pool, so
-that it sends lanes to the rank chase that the kernel (a thread per lane,
-its own SA buffer) resolves in position space. Each case runs the grid with
-blocks and threads in order and in reverse."""
+ranks them) and of the edge corpus (``_edge_corpus``: a unitig of 130
+occurrences, 13-mer buckets of SA_CAP rows with tied LCEs, a repeat family
+whose slow lanes fill SP_SETs past the hot tier), at the captured SP_SET
+tier, at the full tier (``iv_cap=None``, 512), at ``iv_cap`` 1 and 2
+(hot-tier overflows) and on a lane set whose first probes overflow the
+eager port's shared SA pool, so that it sends lanes to the rank chase that
+the kernel (a warp per lane, its own SA_CAP-row scratch) resolves in
+position space. Each case runs each warp's threads in order and in reverse
+between collectives."""
+import collections
 import ctypes
 import os
 import shutil
@@ -45,7 +49,7 @@ KERNELS = os.path.join(HERE, "..", "desamba_tpu_torch", "kernels")
 
 @pytest.fixture(scope="module")
 def ladder_emu(tmp_path_factory):
-    """kernels/ladder.cu compiled as host C++ over block_emu.h, loaded with
+    """kernels/ladder.cu compiled as host C++ over warp_emu.h, loaded with
     ctypes."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -101,6 +105,135 @@ def corpora(captured, tmp_path_factory):
     return captured + [(idx, DeviceIndex.build(idx), tix, calls)]
 
 
+def _edge_corpus(rng):
+    """Four references and 11 reads (name, sequence) for the kernels' edges:
+    a 150-base unit 130 times (one unitig of 130 occurrences: a map_seed
+    fans out over it in five rounds of 32 and passes a_cap; three reads
+    around copies, 2 % errors), four 24-base segments 16 times each
+    between unique 30-base flanks (13-mer buckets of about SA_CAP rows whose
+    LCEs tie; four reads of six segments in random sequence) and a family
+    of 120 copies of a 300-base unit, 4 % apart (four reads around copies,
+    12 % errors, whose slow lanes walk SP_SETs past the hot tier)."""
+    def rnd(n):
+        return "".join("ACGT"[c] for c in rng.integers(0, 4, n))
+
+    def mutate(s, rate):
+        a = np.array(list(s))
+        m = rng.random(len(a)) < rate
+        a[m] = [rnd(1) for _ in range(int(m.sum()))]
+        return "".join(a)
+
+    unit, segs, fam = rnd(150), [rnd(24) for _ in range(4)], rnd(300)
+    fam = [mutate(fam, 0.04) for _ in range(120)]
+    pieces = [[] for _ in range(4)]
+    for i in range(130):
+        pieces[i % 4].append(unit)
+    for g in segs:
+        for i in range(16):
+            pieces[i % 4].append(rnd(30) + g + rnd(30))
+    for i, x in enumerate(fam):
+        pieces[i % 4].append(x)
+    refs = []
+    for items in pieces:
+        rng.shuffle(items)
+        s = list(rnd(2000) + "".join(x + rnd(int(rng.integers(100, 200)))
+                                     for x in items))
+        for at in range(1000, len(s) - 10, 1100):   # N patches fragment it
+            s[at : at + 3] = "NNN"
+        refs.append("".join(s))
+
+    def around(x, ln, rate):
+        r = next(r for r in refs if x in r)
+        st = max(0, r.find(x) - int(rng.integers(50, 200)))
+        return mutate(r[st : st + ln].replace("N", "A"), rate)
+
+    reads = [(f"u{i}", around(unit, 500, 0.02)) for i in range(3)]
+    reads += [(f"g{i}", "".join(rnd(int(rng.integers(15, 40))) + g
+                                for _ in range(6)))
+              for i, g in enumerate(segs)]
+    whole = [x for x in fam if any(x in r for r in refs)]   # no N patch
+    reads += [(f"d{i}", around(whole[int(rng.integers(len(whole)))], 600,
+                               0.12)) for i in range(4)]
+    return refs, reads
+
+
+def _tied_buckets(ixr, hash13, codes_pk, str_idx, pre_v, active, col_off,
+                  rows):
+    """Of the active lanes' probes: those whose 13-mer bucket holds SA_CAP
+    rows, and of those the ones where two rows' LCEs (the values
+    interval_sa ranks) are equal."""
+    from desamba_tpu_torch.engine.device.fm import SA_CAP
+    from desamba_tpu_torch.engine.device.intops import i32, take, u32
+    from desamba_tpu_torch.engine.device.textwalk import lce_backward
+
+    sp0 = u32(take(hash13, pre_v))
+    n0 = i32(u32(take(hash13, pre_v + 1)) - sp0)
+    sel = (active & (n0 == SA_CAP)).nonzero().squeeze(1)
+    if sel.numel() == 0:
+        return 0, 0
+    rix = sp0[sel][:, None] + torch.arange(SA_CAP)[None, :]
+    p = ixr.row_pos[rix.clamp(0, ixr.isa.shape[0] - 1).long()].reshape(-1)
+
+    def rep(x):
+        return x[sel, None].expand(-1, SA_CAP).reshape(-1)
+
+    lce = lce_backward(ixr.text_pk, ixr.sep_any, codes_pk, rep(rows),
+                       rep(col_off), rep(str_idx - 13), p - 1,
+                       rep((str_idx - 12).clamp(min=0)),
+                       torch.ones_like(p, dtype=torch.bool))
+    tied = sum(len(set(r)) < SA_CAP for r in lce.reshape(-1, SA_CAP).tolist())
+    return sel.numel(), tied
+
+
+@pytest.fixture(scope="module")
+def edges(tmp_path_factory):
+    """The ladder calls of ``_edge_corpus``'s reads, (idx, jd, tix, calls,
+    seen), with what the eager port met while it made them: ``seen`` maps
+    (kind, what) to the largest fan-out of one map_seed ("fan"), the most
+    SP_SET intervals of a lane ("niv"), the probes with an SA_CAP-row
+    bucket ("full") and those of them with tied LCEs ("tied")."""
+    from desamba_tpu.engine.device.arrays import DeviceIndex
+    from desamba_tpu.index.build import build_index
+    from desamba_tpu_torch.engine.device import fm as dev_fm
+    from desamba_tpu_torch.engine.device import ladder
+
+    refs, reads = _edge_corpus(np.random.default_rng(8))
+    fa = tmp_path_factory.mktemp("edges") / "edges.fa"
+    with open(fa, "w") as f:
+        for i, s in enumerate(refs):
+            f.write(f">tid|{700 + i}|ref|EDGE_{i}\n{s}\n")
+    idx = build_index(str(fa))
+    seen = collections.Counter()
+    orig_map, orig_probe = ladder.map_seed_lanes, dev_fm.mem_probe
+
+    def map_spy(*a, **kw):
+        before = a[-1].clone()                    # the lanes' anchor counts
+        out = orig_map(*a, **kw)
+        kind = "fast" if "rows" in kw else "slow"
+        seen[kind, "fan"] = max(seen[kind, "fan"],
+                                int((out[1] - before).max()))
+        return out
+
+    def probe_spy(ixr, fm_blocks, rank6, hash13, codes, codes_pk, str_idx,
+                  pre_v, active, spset, spcount, max_rst, *a, **kw):
+        kind = "fast" if max_rst == 2 else "slow"       # MEM_SEARCH_FAST
+        n, tied = _tied_buckets(ixr, hash13, codes_pk, str_idx, pre_v,
+                                active, kw["col_off"], kw["row_idx"])
+        seen[kind, "full"] += n
+        seen[kind, "tied"] += tied
+        out = orig_probe(ixr, fm_blocks, rank6, hash13, codes, codes_pk,
+                         str_idx, pre_v, active, spset, spcount, max_rst,
+                         *a, **kw)
+        seen[kind, "niv"] = max(seen[kind, "niv"], int(out[7][:, 0].max()))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ladder, "map_seed_lanes", map_spy)
+        mp.setattr(dev_fm, "mem_probe", probe_spy)
+        tix, calls = _capture(idx, [_Rec(n, s) for n, s in reads])
+    return idx, DeviceIndex.build(idx), tix, calls, seen
+
+
 def _emulate(lib, idx, tix, c, iv_cap, reverse, kind="fast", m_cap=0):
     """The ``kind`` ladder's kernel on call ``c`` at ``iv_cap`` (and, slow,
     ``m_cap``): (packed, info, overflow) and the lanes' trips."""
@@ -150,21 +283,40 @@ def _fast_calls(sets):
                 yield idx, jd, tix, c
 
 
-@pytest.mark.parametrize("corpus", ["fixtures", "strains"])
+def corpus_sets(corpora, corpus, request):
+    """The (idx, jd, tix, calls) sets of a named corpus: the fixtures' two,
+    the strains, or the edge corpus (built only when asked for)."""
+    if corpus == "edges":
+        return [request.getfixturevalue("edges")[:4]]
+    return corpora[:2] if corpus == "fixtures" else corpora[2:]
+
+
+@pytest.mark.parametrize("corpus", ["fixtures", "strains", "edges"])
 @pytest.mark.parametrize("tier", ["captured", "full"])
 def test_kernel_source_matches_jax_and_plain(corpora, ladder_emu, tier,
-                                             corpus):
+                                             corpus, request):
     """Every captured fast-ladder call, at its own SP_SET tier (the hot 32,
     or None where the classifier re-dispatched) and at the full 512:
     tolerance 0 on packed anchors, info rows and pack overflow; the longest
-    lane's trips equal the eager loop's trip count."""
-    n = 0
-    sets = corpora[:2] if corpus == "fixtures" else corpora[2:]
-    for idx, jd, tix, c in _fast_calls(sets):
+    lane's trips equal the eager loop's trip count. On the edge corpus one
+    map_seed fans out over more than a_cap occurrences (four rounds of 32
+    and more), a lane's anchor count passes a_cap, and probes rank
+    SA_CAP-row buckets whose LCEs tie."""
+    from desamba_tpu_torch.engine.device.classifier import A_CAP
+
+    n = most = 0
+    for idx, jd, tix, c in _fast_calls(corpus_sets(corpora, corpus,
+                                                   request)):
         info = _check(ladder_emu, idx, jd, tix, c,
                       c["iv_cap"] if tier == "captured" else None)
         n += int(info[:, 1].sum() > 0)
+        most = max(most, int(info[:, 1].max()))
     assert n >= 1 + (corpus == "fixtures"), "too few calls with anchors"
+    if corpus == "edges":
+        seen = request.getfixturevalue("edges")[4]
+        assert seen["fast", "fan"] > A_CAP, "no map_seed fanned out past a_cap"
+        assert most > A_CAP, "no lane's anchor count passed a_cap"
+        assert seen["fast", "tied"] > 0, "no SA_CAP-row bucket with tied LCEs"
 
 
 @pytest.mark.parametrize("iv_cap", [1, 2])

@@ -1,21 +1,23 @@
 """The slow-ladder CUDA kernel's own source (``slow_ladder_kernel`` of
-kernels/ladder.cu over kernels/ladder.cuh), compiled as host C++ over
-tests/cuda_host/block_emu.h and run on the CPU, == the JAX ``slow_ladder``
+kernels/ladder.cu over kernels/ladder.cuh, a warp per lane), compiled as
+host C++ over tests/cuda_host/warp_emu.h and run on the CPU, == the JAX ``slow_ladder``
 and the port's eager ``slow_ladder`` (its plain version), bit for bit
 (tolerance 0): packed anchors, the (N, 4) info rows (column 2 the MEM
 overflow) and the pack overflow.
 
 The lane sets are every slow-ladder call of ``test_torch_ladder``'s
 ``captured`` fixture (noisy reads and reads absent from the index on the
-small genome, the repeat corpus) and of the six-strain family of
-``test_torch_ladder_kernel``, at the captured SP_SET tier, at the full
-tier (``iv_cap=None``), at ``iv_cap`` 1 and 2 (hot-tier overflows), at
-``m_cap`` 3 and 9 on the repeat corpus (a lane stores fewer MEMs than it
-finds, and records of equal length meet across the 8th place of the stable
-sort, of which the kernel keeps only the first 8), and on a lane set whose
-first probes overflow the eager port's shared SA pool at 8 rows a probe.
-Each case runs the grid with blocks and threads in order and in reverse,
-and each lane's trips are the ladder's closed form (a probe every second
+small genome, the repeat corpus) and of the six-strain family and the edge
+corpus of ``test_torch_ladder_kernel``, at the captured SP_SET tier (on the
+edge corpus a re-dispatch of lanes whose SP_SETs pass 32 intervals), at
+the full tier (``iv_cap=None``), at ``iv_cap`` 1 and 2 (hot-tier
+overflows), at ``m_cap`` 3 and 9 on the repeat corpus (a lane stores fewer
+MEMs than it finds, and records of equal length meet across the 8th place
+of the stable sort, of which the kernel keeps only the first 8) and 16 on
+the edge corpus (equal lengths from different trips in the top 8), and on
+a lane set whose first probes overflow the eager port's shared SA pool at 8
+rows a probe. Each case runs each warp's threads in order and in reverse
+between collectives, and each lane's trips are the ladder's closed form (a probe every second
 position from ``seed_len - 1`` down to 1)."""
 import numpy as np
 import pytest
@@ -36,7 +38,9 @@ from test_torch_ladder_kernel import (  # noqa: E402,F401
     _emulate,
     _pool_lanes,
     corpora,
+    corpus_sets,
     count_pool_routing,
+    edges,
     ladder_emu,
 )
 from test_torch_stages import assert_same  # noqa: E402
@@ -85,23 +89,34 @@ def _check(lib, idx, jd, tix, c, iv_cap, m_cap=None, eager=True):
     return np.asarray(e_info)
 
 
-@pytest.mark.parametrize("corpus", ["fixtures", "strains"])
+@pytest.mark.parametrize("corpus", ["fixtures", "strains", "edges"])
 @pytest.mark.parametrize("tier", ["captured", "full"])
 def test_slow_kernel_source_matches_jax_and_plain(corpora, ladder_emu, tier,
-                                                  corpus):
+                                                  corpus, request):
     """Every captured slow-ladder call, at its own SP_SET tier (against the
     eager outputs the capture holds) and at the full tier: tolerance 0 on
-    packed anchors, info rows and pack overflow."""
-    n = 0
-    sets = corpora[:2] if corpus == "fixtures" else corpora[2:]
-    for idx, jd, tix, c in _slow_calls(sets):
+    packed anchors, info rows and pack overflow. On the edge corpus a lane's
+    SP_SET passes the hot tier's 32 intervals (the classifier re-ran its
+    group at the full tier, which the captured tier replays) and probes rank
+    SA_CAP-row buckets whose LCEs tie."""
+    from desamba_tpu_torch.engine.device.ladder import IV_HOT
+
+    n = redispatched = 0
+    for idx, jd, tix, c in _slow_calls(corpus_sets(corpora, corpus,
+                                                   request)):
         if tier == "captured":
             info = _check(ladder_emu, idx, jd, tix, c, c["iv_cap"],
                           eager=False)
         else:
             info = _check(ladder_emu, idx, jd, tix, c, None)
         n += int(info[:, 1].sum() > 0)
+        redispatched += c["iv_cap"] is None
     assert n >= 1, "no slow-ladder call with anchors"
+    if corpus == "edges":
+        seen = request.getfixturevalue("edges")[4]
+        assert seen["slow", "niv"] > IV_HOT and redispatched, \
+            "no SP_SET passed the hot tier"
+        assert seen["slow", "tied"] > 0, "no SA_CAP-row bucket with tied LCEs"
 
 
 @pytest.mark.parametrize("iv_cap", [1, 2])
@@ -115,15 +130,31 @@ def test_slow_kernel_source_forced_iv_overflow(corpora, ladder_emu, iv_cap):
     assert n_ovf > 0, f"iv_cap={iv_cap} never overflowed"
 
 
-@pytest.mark.parametrize("m_cap", [3, 9])
+def cross_trip_ties(lane_recs, m_cap):
+    """The lanes with more than m_cap MEM records ((length, str_idx) each,
+    in the order found) whose top 8 of the first m_cap (a stable sort by
+    length, longest first) holds two of equal length from different
+    trips."""
+    n = 0
+    for recs in lane_recs.values():
+        if len(recs) > m_cap:
+            top = sorted(recs[:m_cap], key=lambda r: -r[0])[:8]
+            n += any(a[0] == b[0] and a[1] != b[1]
+                     for i, a in enumerate(top) for b in top[i + 1:])
+    return n
+
+
+@pytest.mark.parametrize("m_cap", [3, 9, 16])
 def test_slow_kernel_source_mem_cap(corpora, ladder_emu, monkeypatch,
-                                    m_cap):
+                                    request, m_cap):
     """A lane stores only its first ``m_cap`` MEMs and flags the rest (info
     column 2); the map takes the 8 longest of those in the stable order.
     On the repeat corpus, whose lanes find many MEMs: at m_cap 3 lanes
     overflow; at 9 some lane's 8th and 9th records are of equal length (the
     eager sort's keys say so), so the kernel's top 8 keeps the earlier
-    one."""
+    one. At 16, on the edge corpus, a lane finds more than 16 MEMs and its
+    top 8 holds records of equal length from different trips (the kernel
+    merges each trip's rows into its list after the older records)."""
     from desamba_tpu_torch.engine.device import ladder
 
     keys = []
@@ -134,17 +165,36 @@ def test_slow_kernel_source_mem_cap(corpora, ladder_emu, monkeypatch,
         keys.append(key.gather(dim, order))
         return order
 
+    lane_recs = {}
+    orig_probe = ladder._probe
+
+    def probe_spy(*a):
+        out = orig_probe(*a)
+        rg, (_, str_idx, r) = a[8], out
+        for i, lane in enumerate(rg.tolist()):
+            for k in np.flatnonzero(r[5][i].numpy()):
+                lane_recs.setdefault(lane, []).append(
+                    (int(r[0][i, k]), int(str_idx[i])))
+        return out
+
     monkeypatch.setattr(ladder, "argsort_stable", spy)
-    n_ovf = ties = 0
-    for idx, jd, tix, c in _slow_calls(corpora[1:2]):     # the repeats
+    monkeypatch.setattr(ladder, "_probe", probe_spy)
+    n_ovf = ties = crossed = 0
+    sets = corpora[1:2] if m_cap < 16 else corpus_sets(None, "edges",
+                                                       request)
+    for idx, jd, tix, c in _slow_calls(sets):     # the repeats, the edges
+        lane_recs.clear()
         info = _check(ladder_emu, idx, jd, tix, c, c["iv_cap"], m_cap)
         n_ovf += int(info[:, 2].sum())
+        crossed += cross_trip_ties(lane_recs, m_cap)
         k = keys[-1].numpy()
         if k.shape[1] > 8:
             ties += int(((k[:, 7] == k[:, 8]) & (k[:, 8] < 1 << 30)).sum())
     assert n_ovf > 0, f"m_cap={m_cap} never overflowed"
-    if m_cap > 8:
+    if m_cap == 9:
         assert ties > 0, "no lane had equal lengths at the 8th place"
+    if m_cap == 16:
+        assert crossed > 0, "no top 8 held equal lengths from two trips"
 
 
 def test_slow_kernel_source_sa_pool_overflow(corpora, ladder_emu,
