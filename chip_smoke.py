@@ -66,14 +66,13 @@ and a C compiler. Phases:
    the card, through the wrapper and through the library entry alone; per
    call B and A2, the kernel's ms three ways (the launch alone on arguments
    and outputs made once, in a replayed CUDA graph and by CUDA events, and
-   the wrapper by events), also the launch alone at both block shapes (M2
-   2 and 1 reads a warp, M3 8 and 4 warps a block, the wrapper's first),
-   the plain version's ms, the bound (``chain_bytes``) and ``ptxas``'s
-   line; per M3 call also the shared memory a block and the batch's valid
-   nodes, longest run, widest DP window and most runs in a read
-   (``m3_kernel.shape``); each record
-   sums its calls (``ms`` the launches alone in a graph, ``events_ms`` by
-   events, ``wrapper_ms`` the wrapper's);
+   the wrapper by events), the plain version's ms, the bound
+   (``chain_bytes``) and ``ptxas``'s line; per M3 call also the launch
+   alone at both block shapes (8 and 4 warps a block, the wrapper's
+   first), the shared memory a block and the batch's valid nodes, longest
+   run, widest DP window and most runs in a read (``m3_shape``); each
+   record sums its calls (``ms`` the launches alone in a graph,
+   ``events_ms`` by events, ``wrapper_ms`` the wrapper's);
 6. gather bench: the entry point ``desamba_tpu_torch.tools.gather_bench``
    at the TPU tools' full shapes (B 512, K 1,152, P 176, R 16), which
    launches the compare-count kernel (K3) on a sorted table (the 1-lane
@@ -444,6 +443,59 @@ def chain_bytes(n_anc, A2, m3):
     return nbytes, ops
 
 
+def m3_shape(anc, n_anc):
+    """What the M3 kernel's latency follows on one call (anc (B, A2, 7),
+    n_anc (B,) int32 tensors): the valid nodes in all, the longest run in
+    valid nodes, the widest DP window (the slots a valid node scans: those
+    of its run above its nearest break) and the most runs with a valid node
+    in one read. The sort, runs and breaks are the eager ``m3_kernel``'s,
+    recomputed from the anchors alone (no scores), 64 reads at a time."""
+    import torch
+
+    i64, m32 = torch.int64, 0xFFFFFFFF
+    B, A2, _ = anc.shape
+    dev = anc.device
+
+    def wrap(x):                        # int64 -> the int32 it wraps to
+        return ((x + (1 << 31)) & m32) - (1 << 31)
+
+    slot = torch.arange(A2, device=dev)
+    nodes = longest = widest = most = 0
+    for b0 in range(0, B, 64):
+        a = anc[b0:b0 + 64].to(i64)
+        valid = slot[None] < n_anc[b0:b0 + 64, None].to(i64)
+        key = torch.where(valid, wrap(a[..., 4] * 2 + a[..., 5]), 1 << 30)
+        order = torch.argsort(a[..., 1] & m32, dim=1, stable=True)
+        order = order.gather(1, torch.argsort(key.gather(1, order), dim=1,
+                                              stable=True))
+        s = a.gather(1, order[..., None].expand(-1, -1, a.shape[2]))
+        sv = valid.gather(1, order)
+        iir, roff, mlen, ref, dirc = (s[..., k] for k in (0, 1, 2, 4, 5))
+        same = ((ref[:, 1:] == ref[:, :-1]) & (dirc[:, 1:] == dirc[:, :-1])
+                & (((roff[:, 1:] - roff[:, :-1]) & m32) < 2000) & sv[:, 1:])
+        new = torch.cat([torch.ones_like(same[:, :1]), ~same], dim=1)
+        run_id = torch.cumsum(new.to(i64), dim=1) - 1
+        start = torch.cummax(torch.where(new, slot, 0), dim=1).values
+        run_nodes = torch.zeros_like(run_id).scatter_add_(1, run_id,
+                                                          sv.to(i64))
+        # brk[c, j]: slot j, before node c in c's run, breaks c's window
+        mq = ((iir + 3) & m32)[:, :, None]
+        mt = ((roff + 3) & m32)[:, :, None]
+        pass_ov = (((iir + mlen) & m32)[:, None] <= mq) & \
+            (((roff + mlen) & m32)[:, None] <= mt)
+        brk = pass_ov & ((((iir + 1000) & m32)[:, None] < mq)
+                         | (((roff + 1000) & m32)[:, None] < mt))
+        prior = (slot[None, :] < slot[:, None])[None] & \
+            (run_id[:, None, :] == run_id[:, :, None])
+        brk_slot = torch.where(brk & prior, slot, -1).amax(dim=2)
+        window = slot - torch.maximum(start, brk_slot + 1)
+        nodes += int(sv.sum())
+        longest = max(longest, int(run_nodes.max()))
+        widest = max(widest, int(torch.where(sv, window, 0).max()))
+        most = max(most, int((run_nodes > 0).sum(dim=1).max()))
+    return nodes, longest, widest, most
+
+
 def cmpcount_ops(B, P, K, t_sorted):
     """The least comparisons K3's function needs on these shapes: on a
     sorted table, one binary search per query (ceil(log2(K + 1)) steps;
@@ -548,27 +600,22 @@ def main():
     log(f"ptxas fast_ladder_kernel: {b2_ptxas}")
     b3_ptxas = ptxas_lines(built["ladder.cu"], "slow_ladder_kernel")
     log(f"ptxas slow_ladder_kernel: {b3_ptxas}")
-    # B4's block shapes, the wrapper's first: M2's reads a warp (1 or 2),
-    # M3's warps a block (8 or 4, by the batch: m3_warps); a wrapper without
-    # M2_READS or m3_warps launches one shape, a warp a read and a block
-    r_m2 = getattr(dc, "M2_READS", None)
+    # B4's block shapes, the wrapper's first: M2 one (a warp a read), M3 8
+    # or 4 warps a block (by the batch: m3_warps)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def b4_blocks(name, B):
         if name == "chain":
-            return (r_m2, 3 - r_m2) if r_m2 else (None,)
-        if not hasattr(dc, "m3_warps"):
             return (None,)
         w = dc.m3_warps(B, sms)
         return w, 12 - w
 
-    b4_ptxas = {k: ptxas_lines(built["chain.cu"], k)
-                for k in ("chain_kernel", "m3_kernel")}
-    if hasattr(dc, "m3_warps"):
-        b4_ptxas["m3_kernel"] = " || ".join(
+    b4_ptxas = {
+        "chain_kernel": ptxas_lines(built["chain.cu"], "chain_kernel"),
+        "m3_kernel": " || ".join(
             f"{w} warps a block: "
             + ptxas_lines(built["chain.cu"], "m3_kernel", f"ILi{w}E")
-            for w in (8, 4))
+            for w in (8, 4))}
     for k, v in b4_ptxas.items():
         log(f"ptxas {k}: {v}")
 
@@ -904,15 +951,14 @@ def main():
     dev0 = torch.device("cuda")
 
     def chain_launch(name, anc, n_anc, outs, block):
-        """The library entry alone on (anc, n_anc) into ``outs`` at ``block``
-        (M2's reads a warp, M3's warps a block): made once, no checks, not
-        counted as a launch."""
+        """The library entry alone on (anc, n_anc) into ``outs`` (M3 at
+        ``block`` warps a block): made once, no checks, not counted as a
+        launch."""
         B, A2 = anc.shape[:2]
         entry, extra = chain_lib.chain_m2_launch, ()
         if name == "m3_chain":
             entry = chain_lib.chain_m3_launch
-            extra = (dc.m3_smem_bytes(A2),)
-        extra += (block,) if block else ()
+            extra = (dc.m3_smem_bytes(A2), block)
         ptrs = [t.data_ptr() for t in (anc, n_anc, *outs)]
 
         def launch():
@@ -939,7 +985,6 @@ def main():
             e1.record()
             torch.cuda.synchronize()
             plain_ms = e0.elapsed_time(e1)
-            shape = getattr(plain, "shape", None)
             wrap_ms = cuda_ms(lambda: kernel(anc, n_anc), 20)
             err = max_err(got, exp)
             # the launch alone, by events and in a replayed CUDA graph, at
@@ -958,16 +1003,15 @@ def main():
             nbytes, ops = chain_bytes(n_h, anc.shape[1], name == "m3_chain")
             bnd = bound(nbytes, ops)
             B, A2 = anc.shape[:2]
-            unit = "reads a warp" if name == "chain" else "warps a block"
-            extra = "; " + "; ".join(
-                f"{w or 1} {unit}: {g:.5f} ms in a graph, {e:.5f} ms by "
-                f"events" for w, g, e in alone)
+            extra = ""
             if name == "m3_chain":
-                extra += (f"; shared memory {dc.m3_smem_bytes(A2)} bytes a "
-                          f"block; valid nodes, longest run, widest window, "
-                          f"most runs a read: "
-                          + ("not recorded" if shape is None else
-                             ", ".join(str(x) for x in shape)))
+                extra = ("; " + "; ".join(
+                    f"{w} warps a block: {g:.5f} ms in a graph, {e:.5f} ms "
+                    f"by events" for w, g, e in alone)
+                    + f"; shared memory {dc.m3_smem_bytes(A2)} bytes a "
+                    f"block; valid nodes, longest run, widest window, most "
+                    f"runs a read: "
+                    + ", ".join(str(x) for x in m3_shape(anc, n_anc)))
             log(f"{name} call {i + 1}: B {B}, A2 {A2}, "
                 f"{int((n_h > 0).sum())} reads with anchors, "
                 f"{int(np.minimum(n_h, A2).clip(0).sum())} anchors: kernel "

@@ -6,8 +6,7 @@ compares go through ``_absu`` and ``intops.u32`` at exactly the points the
 JAX code casts to ``U32``; every other compare is a signed int32 one.
 
 M2 and M3 are also hand-written CUDA kernels in ``kernels/chain.cu`` (M2 a
-half-warp per read, ``M2_READS`` reads a warp; M3 a block of ``m3_warps``
-warps per read): ``run_chain_kernel`` and ``run_m3_kernel`` launch them for
+warp per read; M3 a block of ``m3_warps`` warps per read): ``run_chain_kernel`` and ``run_m3_kernel`` launch them for
 CUDA tensors (``chain_kernel_cuda``, ``m3_kernel_cuda``) and run the eager
 ``chain_kernel`` and ``m3_kernel``, their plain versions, only for CPU
 tensors.
@@ -45,7 +44,6 @@ CH_NF = len(CH)
 RC_CAP = 8      # rescore chain slots (rescore.C_CAP)
 M3_A2 = 512     # anchor slots for the M3 sub-batch
 M3_MAX_A2 = 1024    # the most the M3 kernel takes
-M2_READS = 1    # reads of an M2 warp (1 or 2)
 
 
 def _absu(a, b):
@@ -169,9 +167,9 @@ def _launch(entry, anc, n_anc, *extra):
 
 
 def chain_kernel_cuda(anc, n_anc):
-    """Launch the M2 kernel (``M2_READS`` reads a warp) on CUDA tensors;
+    """Launch the M2 kernel (a warp per read) on CUDA tensors;
     returns what ``chain_kernel`` returns."""
-    out = _launch("chain_m2_launch", anc, n_anc, M2_READS)
+    out = _launch("chain_m2_launch", anc, n_anc)
     chain_kernel_cuda.launches += 1
     return out
 
@@ -253,11 +251,7 @@ def prep_rescore(sel, chs, ns, pres, ancs):
 def m3_kernel(anc, n_anc):
     """Sort + sparse-DP chaining for >=50-anchor reads (gold
     chain_insert_m3). Returns (chains, n_out, pre, ovf) with ``pre`` in
-    ORIGINAL anchor-slot space, as the JAX ``m3_kernel``. Sets
-    ``m3_kernel.shape``: the batch's valid nodes, its longest run in valid
-    nodes, its widest DP window (the predecessors a node scans, above the
-    nearest break in its run) and the most runs with a valid node in one
-    read: what the M3 kernel's latency follows."""
+    ORIGINAL anchor-slot space, as the JAX ``m3_kernel``."""
     m3_kernel.runs += 1
     B, A2, _ = anc.shape
     dev = anc.device
@@ -284,9 +278,6 @@ def m3_kernel(anc, n_anc):
     new_run = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
                          ~same], dim=1)
     run_id = torch.cumsum(new_run.to(I32), dim=1, dtype=I32) - 1
-    run_nodes = torch.zeros((B, A2), dtype=I32, device=dev)
-    run_nodes.scatter_add_(1, run_id.long(), svalid.to(I32))
-    widest = torch.zeros((B,), dtype=I32, device=dev)
 
     NEG = -(1 << 30)
     eff = torch.where(((useless >> 1) & 1) == 1, 1, score)
@@ -311,10 +302,8 @@ def m3_kernel(anc, n_anc):
         brk = pass_ov & ((u32(iir + 1000) < mq_u) | (u32(roff + 1000) < mt_u))
         brk_slot = torch.where(brk & prior, slot, -1).amax(dim=1)
         indel = iir - roff - (max_q - max_t)[:, None]
-        window = prior & (slot > brk_slot[:, None])
-        widest = torch.where(c_on, torch.maximum(
-            widest, window.sum(dim=1, dtype=I32)), widest)
-        ok = window & pass_ov & (indel.abs() <= 200)
+        ok = (prior & pass_ov & (slot > brk_slot[:, None])
+              & (indel.abs() <= 200))
         new_s = (score_v + c_mlen[:, None] - (indel.abs() >> 4)
                  - i32(u32(max_q[:, None] - iir) >> 8))
         new_s = torch.where(ok, new_s, NEG)
@@ -336,8 +325,6 @@ def m3_kernel(anc, n_anc):
         for arr, v in vals:
             arr[:, ci] = torch.where(c_on, v, arr[:, ci])
     score_v = torch.where(svalid, score_v, NEG)
-    m3_kernel.shape = tuple(int(x.max()) if B else 0 for x in (
-        svalid.sum(), run_nodes, widest, (run_nodes > 0).sum(dim=1)))
 
     # per-run max: the FIRST node (ascending) achieving each run's max
     n_runs = torch.where(svalid, run_id, -1).amax(dim=1) + 1
@@ -371,7 +358,6 @@ def m3_kernel(anc, n_anc):
 
 
 m3_kernel.runs = 0   # calls of the plain version
-m3_kernel.shape = (0, 0, 0, 0)
 
 
 def m3_smem_bytes(A2: int) -> int:

@@ -144,7 +144,7 @@ def ladder_lib():
 
 
 def chain_lib():
-    # anc, n_anc, chains, n_out, pre, ovf, B, A2, (M2) reads a warp or (M3)
-    # its shared memory bytes and warps a block, stream
-    return _bound("chain.cu", {"chain_m2_launch": "p" * 6 + "iii" + "p",
+    # anc, n_anc, chains, n_out, pre, ovf, B, A2, (M3: its shared memory
+    # bytes and warps a block), stream
+    return _bound("chain.cu", {"chain_m2_launch": "p" * 6 + "ii" + "p",
                                "chain_m3_launch": "p" * 6 + "iiii" + "p"})

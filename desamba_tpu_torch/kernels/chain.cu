@@ -1,5 +1,5 @@
 // Anchor chaining (src/cly.c:66-349) for Hopper: M2 insertion with the
-// resolve-tree sort (chain_kernel, a half-warp a read) and the M3 sort and
+// resolve-tree sort (chain_kernel, a warp a read) and the M3 sort and
 // sparse DP (m3_kernel, a block of W warps a read).
 //
 // They replace the JAX package's chain_kernel and m3_kernel
@@ -13,23 +13,19 @@
 // kilobytes a read (chip_smoke.py's chain_bytes), but M2 is a chain of up
 // to 64 dependent steps and the M3 DP one step a node of a run, in order.
 //
-// chain_kernel: a read a half-warp, lane c of the half holding chain slot
-// c's 13 fields in registers; the lower half takes a read, or both halves
-// take one each and step together (reads = 2, which the wrapper does not
-// use: the halves then run as long as the longer read, and that lost on
-// the main path's calls with few anchors). Each half stages its read's
-// anchors in shared memory 32 at a time (coalesced), and each step reads
-// its anchor by broadcast loads issued a step ahead, so the chain of a step
-// is the match test (same ref and direction, |dis - q_t_dis| < 30 as a
-// wrapping int32, ABS_U(t_ed, roff) < 400), a ballot and __ffs for the
-// first match in the half's bits (the JAX argmax) and the target lane's
-// update. The target lane decides the insertion from its own q_ed and
-// writes pre[a] into a staged row (-1 by default), copied out coalesced
-// after the 32 steps. The resolve sort is a stable sort by (1 - with_top,
-// -score2, slot) (the two stable argsorts of the JAX code): each lane ranks
-// its slot by counting over its half's 16 keys, and the truncation (the top
-// 5 and the run of with_top chains after them) is one sum of rank bits
-// over the half.
+// chain_kernel: a read a warp, lane c < 16 holding chain slot c's 13
+// fields in registers. The warp stages its read's anchors in shared memory
+// 32 at a time (coalesced), and each step reads its anchor by broadcast
+// loads issued a step ahead, so the chain of a step is the match test (same
+// ref and direction, |dis - q_t_dis| < 30 as a wrapping int32, ABS_U(t_ed,
+// roff) < 400), a ballot and __ffs for the first match (the JAX argmax) and
+// the target lane's update. The target lane decides the insertion from its
+// own q_ed and writes pre[a] into a staged row (-1 by default), copied out
+// coalesced after the 32 steps. The resolve sort is a stable sort by (1 -
+// with_top, -score2, slot) (the two stable argsorts of the JAX code): each
+// lane ranks its slot by counting over the 16 keys, and the truncation (the
+// top 5 and the run of with_top chains after them) is one sum of rank bits
+// over the warp.
 //
 // m3_kernel<W>: one read a block of W warps (8 while a batch fits one
 // wave of them, 4 above: the wrapper's m3_warps), its state in dynamic
@@ -140,77 +136,68 @@ __device__ __forceinline__ int truncate(int n, int run) {
 }  // namespace chn
 
 constexpr int CHAIN_WARPS = 4;   // M2 warps a block
-// M2 shared memory a half-warp: 32 staged anchors, then their 32 pre words,
-// and one word that puts the two halves' anchors on different banks
-constexpr int M2_STAGE = 32 * (chn::AF2 + 1) + 1;
+// M2 shared memory a warp: 32 staged anchors, then their 32 pre words
+constexpr int M2_STAGE = 32 * (chn::AF2 + 1);
 
 // M2: anc (B, A2, 7) in gold insertion order, n_anc (B,) -> chains (B, 16,
 // 13) sorted and truncated, n_out (B,), pre (B, A2), ovf (B,) (1 byte).
-// Each half-warp takes a read (R = 2) or only the lower half does (R = 1):
-// lane c of a half holds its read's chain slot c. The halves step
-// together, as long as the longer of their reads, so every collective
-// takes the full warp and each half reads its own bits.
+// A warp takes a read: lane c < 16 holds its chain slot c; all 32 lanes
+// stage the anchors and copy the pre row out.
 __global__ void __launch_bounds__(CHAIN_WARPS * 32)
     chain_kernel(const int* __restrict__ anc, const int* __restrict__ n_anc,
                  int* __restrict__ chains, int* __restrict__ n_out,
                  int* __restrict__ pre, unsigned char* __restrict__ ovf, int B,
-                 int A2, int R) {
+                 int A2) {
   using namespace chn;
   extern __shared__ __align__(16) int m2_smem[];
-  const int lane = threadIdx.x & 31, half = lane >> 4, c = lane & 15;
-  const int hb = 16 * half;                   // the half's first lane
-  const int b = ((blockIdx.x * CHAIN_WARPS + (threadIdx.x >> 5)) * R) + half;
-  const bool mine = half < R && b < B;        // the half has a read
-  if (__ballot_sync(FULL, mine) == 0) return; // the same in every lane
-  int* sa = m2_smem + ((threadIdx.x >> 5) * 2 + half) * M2_STAGE;
+  const int c = threadIdx.x & 31;
+  const int b = blockIdx.x * CHAIN_WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;                         // the whole warp
+  int* sa = m2_smem + (threadIdx.x >> 5) * M2_STAGE;
   int* sp = sa + 32 * AF2;                    // pre of anchor k
-  const int* ar = anc + (size_t)(mine ? b : 0) * A2 * AF2;
-  int* pr = pre + (size_t)(mine ? b : 0) * A2;
-  const int na = mine ? n_anc[b] : 0;
+  const int* ar = anc + (size_t)b * A2 * AF2;
+  int* pr = pre + (size_t)b * A2;
+  const int na = n_anc[b];
   const int nloop = max(0, min(na, A2));      // slots with a < n_anc
-  const int nmax = max(nloop, __shfl_sync(FULL, nloop, lane ^ 16));
-  int h[CH_NF];                               // chain slot c of the half
+  int h[CH_NF];                               // chain slot c (c < 16)
   for (int f = 0; f < CH_NF; ++f) h[f] = 0;
   int nch = 0;
   bool of = na >= M3_ANCHOR_THRESHOLD;
-  for (int a0 = 0; a0 < nmax; a0 += 32) {
-    const int cnt = min(32, max(0, nloop - a0));
+  for (int a0 = 0; a0 < nloop; a0 += 32) {
+    const int cnt = min(32, nloop - a0);
     {                                         // every load before any store
-      int v[2 * AF2];
-      for (int q = 0; q < 2 * AF2; ++q) {
-        const int t = c + 16 * q;
+      int v[AF2];
+      for (int q = 0; q < AF2; ++q) {
+        const int t = c + 32 * q;
         v[q] = t < cnt * AF2 ? ar[a0 * AF2 + t] : 0;
       }
-      for (int q = 0; q < 2 * AF2; ++q)
-        if (c + 16 * q < cnt * AF2) sa[c + 16 * q] = v[q];
+      for (int q = 0; q < AF2; ++q)
+        if (c + 32 * q < cnt * AF2) sa[c + 32 * q] = v[q];
     }
     sp[c] = -1;
-    sp[c + 16] = -1;
     __syncwarp();
-    const int steps = min(32, nmax - a0);
     int nx[AF2];                              // the next step's anchor
     for (int f = 0; f < AF2; ++f) nx[f] = sa[f];
-    for (int k = 0; k < steps; ++k) {
+    for (int k = 0; k < cnt; ++k) {
       int x[AF2];
       for (int f = 0; f < AF2; ++f) x[f] = nx[f];
-      if (k + 1 < steps)
+      if (k + 1 < cnt)
         for (int f = 0; f < AF2; ++f) nx[f] = sa[(k + 1) * AF2 + f];
-      const bool on = k < cnt;                // this half's read has a step
       const int iir = x[A_IIR], roff = x[A_ROFF];
       const int dis = wsub(roff, iir);
       const int read_r = wadd(iir, x[A_MLEN]);
       const int ref_r = wadd(roff, x[A_MLEN]);
       const int nu = x[A_USELESS] == 0;
-      const bool m = on & (c < nch) & (h[H_DIR] == x[A_DIR]) &
+      const bool m = (c < nch) & (h[H_DIR] == x[A_DIR]) &
                      (h[H_REF] == x[A_REF]) &
                      (wabs(wsub(dis, h[H_QTD])) < MAX_DIS_MINUS) &
                      (absu(h[H_TED], roff) < MAX_WAITING_LEN);
-      const unsigned mm = (__ballot_sync(FULL, m) >> hb) & 0xFFFFu;
+      const unsigned mm = __ballot_sync(FULL, m);   // lanes c < nch only
       const bool has = mm != 0;
       const int tgt = has ? __ffs((int)mm) - 1 : min(nch, C2 - 1);
-      const bool do_new = on && !has && nch < C2;
-      of = of || (on && !has && nch >= C2);
-      if (on && c == tgt) {
+      const bool do_new = !has && nch < C2;
+      of = of || (!has && nch >= C2);
+      if (c == tgt) {
         if (do_new) {
           const int rec[CH_NF] = {x[A_REF], dis, x[A_SCORE], 1, x[A_DIR], nu,
                                   roff, ref_r, iir, read_r, 0, a0 + k, nch};
@@ -233,27 +220,26 @@ __global__ void __launch_bounds__(CHAIN_WARPS * 32)
       nch += do_new;
     }
     __syncwarp();
-    for (int t = c; t < cnt; t += 16) pr[a0 + t] = sp[t];
+    if (c < cnt) pr[a0 + c] = sp[c];
     __syncwarp();                             // before the next chunk
   }
-  if (mine)
-    for (int a = nloop + c; a < A2; a += 16) pr[a] = -1;
+  for (int a = nloop + c; a < A2; a += 32) pr[a] = -1;
 
-  // resolve-tree sort and truncation, each half over its 16 slots
+  // resolve-tree sort and truncation over the 16 slots
   const int n = min(nch, C2);
   const unsigned long long key = resolve_key(c < n, h);
   int rank = 0;
   for (int d = 0; d < C2; ++d) {
-    const unsigned long long kd = __shfl_sync(FULL, key, hb + d);
+    const unsigned long long kd = __shfl_sync(FULL, key, d);
     rank += kd < key || (kd == key && d < c);
   }
-  if (mine) {
+  if (c < C2) {
     int* out = chains + ((size_t)b * C2 + rank) * CH_NF;
     for (int f = 0; f < CH_NF; ++f) out[f] = h[f];
   }
   const unsigned grow = __reduce_add_sync(
-      0xFFFFu << hb, rank < n && h[H_TOP] > 0 ? 1u << rank : 0u);
-  if (mine && c == 0) {
+      FULL, c < n && rank < n && h[H_TOP] > 0 ? 1u << rank : 0u);
+  if (c == 0) {
     n_out[b] = truncate(n, __ffs((int)~(grow >> CHAIN_KEEP)) - 1);
     ovf[b] = of;
   }
@@ -914,18 +900,15 @@ constexpr int SMEM_DEFAULT = 48 * 1024;   // more needs the opt-in
 
 // Launch on `stream`; return the CUDA error code of the launch (0 =
 // launched).
-// reads: reads a warp, 1 or 2
 extern "C" int chain_m2_launch(const int* anc, const int* n_anc, int* chains,
                                int* n_out, int* pre, unsigned char* ovf, int B,
-                               int A2, int reads, void* stream) {
+                               int A2, void* stream) {
   if (B <= 0) return 0;
-  if (A2 <= 0 || (reads != 1 && reads != 2))
-    return (int)cudaErrorInvalidValue;
-  const int per_block = CHAIN_WARPS * reads;
-  chain_kernel<<<(B + per_block - 1) / per_block, CHAIN_WARPS * 32,
-                 CHAIN_WARPS * 2 * M2_STAGE * sizeof(int),
+  if (A2 <= 0) return (int)cudaErrorInvalidValue;
+  chain_kernel<<<(B + CHAIN_WARPS - 1) / CHAIN_WARPS, CHAIN_WARPS * 32,
+                 CHAIN_WARPS * M2_STAGE * sizeof(int),
                  (cudaStream_t)stream>>>(anc, n_anc, chains, n_out, pre, ovf,
-                                         B, A2, reads);
+                                         B, A2);
   return (int)cudaGetLastError();
 }
 

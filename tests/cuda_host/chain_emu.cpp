@@ -1,21 +1,20 @@
 // kernels/chain.cu compiled as host C++ over block_emu.h: chain_emulate and
 // m3_emulate run chain_kernel's and m3_kernel<W>'s grids on the CPU, block
-// by block, at their launchers' block shapes (four warps a block for M2, one
-// or two reads a warp; W warps for M3), with the arguments of their
-// launchers (no stream) and the
-// order in which each block's threads run between barriers and warp
-// collectives (reverse also runs the blocks last to first). Shared memory
-// starts as 0xA5 bytes in every block. emu_probe runs the small probe
-// kernels below, which hold block_emu.h's warp collectives to their CUDA
-// meaning. Each returns 0, or 1 with the reason in chain_emu_error.
+// by block, at their launchers' block shapes (four warps a block for M2, a
+// read a warp; W warps for M3), with the arguments of their launchers (no
+// stream) and the order in which each block's threads run between barriers
+// and warp collectives (reverse also runs the blocks last to first). Shared
+// memory starts as 0xA5 bytes in every block. emu_probe runs the small
+// probe kernels below, which hold block_emu.h's warp collectives to their
+// CUDA meaning. Each returns 0, or 1 with the reason in chain_emu_error.
 #include "block_emu.h"
 
 alignas(16) int m3_smem[232448 / 4];   // one M3 block's dynamic shared memory
-alignas(16) int m2_smem[4 * 2 * (32 * 8 + 1)];   // one M2 block's
+alignas(16) int m2_smem[4 * 32 * 8];   // one M2 block's
 
 #include "chain.cu"
 
-static_assert(sizeof(m2_smem) == CHAIN_WARPS * 2 * M2_STAGE * sizeof(int),
+static_assert(sizeof(m2_smem) == CHAIN_WARPS * M2_STAGE * sizeof(int),
               "M2's launch");
 
 static const char* last_error = "";
@@ -40,13 +39,10 @@ static int run_grid(int blocks, int threads, int reverse, int* smem,
 
 extern "C" int chain_emulate(const int* anc, const int* n_anc, int* chains,
                              int* n_out, int* pre, unsigned char* ovf, int B,
-                             int A2, int reads, int reverse) {
-  if (reads != 1 && reads != 2) return finish("reads must be 1 or 2");
-  const int per_block = CHAIN_WARPS * reads;
-  return run_grid((B + per_block - 1) / per_block, CHAIN_WARPS * 32, reverse,
-                  m2_smem, sizeof(m2_smem), [&] {
-                    chain_kernel(anc, n_anc, chains, n_out, pre, ovf, B, A2,
-                                 reads);
+                             int A2, int reverse) {
+  return run_grid((B + CHAIN_WARPS - 1) / CHAIN_WARPS, CHAIN_WARPS * 32,
+                  reverse, m2_smem, sizeof(m2_smem), [&] {
+                    chain_kernel(anc, n_anc, chains, n_out, pre, ovf, B, A2);
                   });
 }
 

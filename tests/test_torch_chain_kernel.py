@@ -1,8 +1,8 @@
 """The chaining CUDA kernels' own source (kernels/chain.cu: ``chain_kernel``,
 M2, and ``m3_kernel``, M3), compiled as host C++ over
 tests/cuda_host/block_emu.h and run on the CPU at their launched block
-shapes (M2 four warps a block of one or two reads each, M3 8 or 4 warps),
-== the JAX
+shapes (M2 four warps a block, a read a warp; M3 8 or 4 warps), == the
+JAX
 ``chain_kernel`` and ``m3_kernel`` and the port's eager ones (their plain
 versions), bit for bit (tolerance 0): chains, n_out, pre and the overflow
 flag.
@@ -24,6 +24,8 @@ Each runs with every block's threads in order and in reverse between
 barriers and collectives (and its blocks in reverse). The emulator's warp
 collectives are held to their CUDA meaning by small probe kernels."""
 import ctypes
+import functools
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -50,7 +52,6 @@ BM, A3 = 8, 512          # an M3 sub-batch and M3_A2
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 OUTS = ("chains", "n_out", "pre", "ovf")
 M3_BLOCKS = (8, 4)       # warps a block: both that m3_warps chooses from
-M2_BLOCKS = (1, 2)       # reads a warp: the wrapper's M2_READS and the other
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +67,7 @@ def chain_emu(tmp_path_factory):
                     "-I", KERNELS, os.path.join(host, "chain_emu.cpp"),
                     "-o", so], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    lib.chain_emulate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    lib.chain_emulate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     lib.m3_emulate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     lib.emu_probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for entry in (lib.chain_emulate, lib.m3_emulate, lib.emu_probe):
@@ -77,10 +78,20 @@ def chain_emu(tmp_path_factory):
     return lib
 
 
+@functools.cache
+def chip_smoke():
+    """chip_smoke.py as a module, for its ``m3_shape`` (``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "..", "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _emulate(lib, kind, anc, n_anc, reverse, block):
-    """The ``kind`` ("m2" / "m3") kernel's grid on the CPU (``block``: M2's
-    reads a warp or M3's warps a block); outputs start as garbage, so every
-    element the kernel leaves unwritten shows."""
+    """The ``kind`` ("m2" / "m3") kernel's grid on the CPU (``block``: M3's
+    warps a block); outputs start as garbage, so every element the kernel
+    leaves unwritten shows."""
     B, W, _ = anc.shape
     anc = np.ascontiguousarray(anc, np.int32)
     n_anc = np.ascontiguousarray(n_anc, np.int32)
@@ -90,7 +101,7 @@ def _emulate(lib, kind, anc, n_anc, reverse, block):
     ovf = np.full((B,), 0x5A, np.uint8)
     ptrs = [a.ctypes.data for a in (anc, n_anc, chains, n_out, pre, ovf)]
     run = lib.chain_emulate if kind == "m2" else lib.m3_emulate
-    rc = run(*ptrs, B, W, block, int(reverse))
+    rc = run(*ptrs, B, W, *((block,) if block else ()), int(reverse))
     assert rc == 0, lib.chain_emu_error().decode()
     assert set(np.unique(ovf)) <= {0, 1}, "ovf holds a byte other than 0/1"
     return chains, n_out, pre, ovf.astype(bool)
@@ -447,9 +458,9 @@ def _check(lib, kind, anc, n_anc, want):
                                          jnp.asarray(n_anc))]
     for what, e, g in zip(OUTS, exp, plain(T(anc), T(n_anc))):
         assert_same(e, g, f"eager port {what}")
-    shape = tc.m3_kernel.shape if kind == "m3" else None
-    # at the wrapper's block shape and the other one chip_smoke.py times
-    for block in (M2_BLOCKS if kind == "m2" else M3_BLOCKS):
+    shape = chip_smoke().m3_shape(T(anc), T(n_anc)) if kind == "m3" else None
+    # M3 at both block shapes the wrapper chooses from
+    for block in ((None,) if kind == "m2" else M3_BLOCKS):
         for reverse in (False, True):
             got = _emulate(lib, kind, anc, n_anc, reverse, block)
             for what, e, g in zip(OUTS, exp, got):
@@ -480,7 +491,6 @@ def test_blocks_cover_the_wrapper():
     warps while a batch fits one wave of them, at 4 past it."""
     from desamba_tpu_torch.engine.device import chain as tc
 
-    assert tc.M2_READS in M2_BLOCKS
     assert [tc.m3_warps(B, 132) for B in (8, 512, 528, 529, 1024)] == \
         [8, 8, 8, 4, 4]
     assert {tc.m3_warps(B, s) for B in (1, 64, 4096) for s in (1, 132)} \
