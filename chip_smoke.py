@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (desamba_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--seed 0] [--mbases 32] [--reads 4096]
+    python3 chip_smoke.py [--seed 0] [--mbases 32] [--reads 4096] \
+        [--depths 1,2,3]
 
 Run from the root of a checkout, on a machine with an NVIDIA card, nvcc
 and a C compiler. Phases:
@@ -13,14 +14,31 @@ and a C compiler. Phases:
    sequences in families of 3-8 strains (1-5 % substitutions and indels
    apart), its index (built on the host, not timed), and long reads with
    ~10 % ONT-like errors, 80 % from the collection and 20 % absent from it;
-3. end to end: DeviceClassifier(device="cuda") over every read, its SAM
-   byte-equal to the gold oracle's (ClassifyEngine) on the same reads,
-   with the slow ladders and the M3 path both taken; the kernels' launch
-   counts are zeroed just before and read just after this run, and so are
-   the eager ladders' and chaining functions' counts of runs: the run fails
-   if the rescore kernel (K1), either ladder kernel (B2, B3) or either
-   chaining kernel (B4a, B4b) was not launched, or if an eager ladder or
-   chaining function ran on the card;
+3. end to end: DeviceClassifier(device="cuda").classify_reads over every
+   read (pipelined: two batches of 2,048 at the full size, device phases
+   on worker threads, finishes in input order), its SAM byte-equal to the
+   gold oracle's (ClassifyEngine) on the same reads, with the slow ladders
+   and the M3 path both taken; the kernels' launch counts are zeroed just
+   before and read just after this run, and so are the eager ladders' and
+   chaining functions' counts of runs: the run fails if the rescore kernel
+   (K1), either ladder kernel (B2, B3) or either chaining kernel (B4a,
+   B4b) was not launched, or if an eager ladder or chaining function ran
+   on the card; the pipeline depth, prep workers and ``os.cpu_count()``,
+   each batch's prep, device phase and finish (start and end from the
+   call's start) and the island prep's encode, bloom probe and
+   segmentation seconds are printed; the calls that phases 5-5d replay are the
+   first batch's (told apart by a thread-local set around each device
+   phase);
+3b. the CLI: phase 3's reads as a FASTQ and its index saved, then
+   ``desamba_tpu_torch.cli`` ``classify --engine device`` (``classify_file``;
+   counts zeroed just before and read just after, as in phase 3), its SAM
+   byte-equal to phase 3's, and ``classify --engine gold -t n`` (n =
+   min(8, os.cpu_count())), its SAM byte-equal to
+   ``classify_records_formatted`` at one thread; both walls printed;
+3c. with --depths, ``classify_reads`` over the same reads once at each
+   ``DESAMBA_PIPE_DEPTH`` of the list, in its order, with a new classifier
+   each time: the wall and stage times of each, its SAM byte-equal to
+   phase 3's;
 4. long reads: a new DeviceClassifier over one batch of 64 reads, the
    first 62 of phase 3's and two of at least 250 kb (a chimera of whole
    references end to end, and a span of one reference inside random
@@ -142,6 +160,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -562,6 +581,9 @@ def main():
     ap.add_argument("--mbases", type=float, default=32.0,
                     help="reference collection size, Mbase")
     ap.add_argument("--reads", type=int, default=4096)
+    ap.add_argument("--depths", default="",
+                    help="comma-separated DESAMBA_PIPE_DEPTH values to time "
+                         "classify_reads at, in this order, after phase 3")
     args = ap.parse_args()
 
     import torch
@@ -569,6 +591,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from desamba_tpu_torch import cli
     from desamba_tpu_torch.engine.device import chain as dc
     from desamba_tpu_torch.engine.device import ladder, plops
     from desamba_tpu_torch.engine.device import rescore_pl as trp
@@ -576,6 +599,8 @@ def main():
                                                             DeviceClassifier)
     from desamba_tpu_torch.engine.gold.classify import ClassifyEngine, Options
     from desamba_tpu_torch.index.build import build_index
+    from desamba_tpu_torch.index.store import save_index
+    from desamba_tpu_torch.io import native
     from desamba_tpu_torch.io.sam import format_result
     from desamba_tpu_torch.kernels import build
     from desamba_tpu_torch.tools import caps, micro
@@ -648,64 +673,164 @@ def main():
              "chain": dc.chain_kernel, "m3_chain": dc.m3_kernel}
     failures = []
 
-    def classify(batch, what):
-        """A new DeviceClassifier over ``batch``, the kernels' counts (and
-        the eager ladders' and chaining functions' runs) zeroed just before
-        and read just after, its SAM held against gold's. Returns
-        (classifier, first rescore input per anchor width, launches,
-        [(kind, iv_cap, arguments)] of the first batch's ladder calls and,
-        of each kind, the first one at the full SP_SET tier, and the
-        chaining calls' (anc, n_anc): the first three M2 calls and every M3
-        call)."""
-        clf = DeviceClassifier(idx, opts, "cuda")
-        captured, ladder_calls = {}, []
-        chain_calls = {"chain": [], "m3_chain": []}
-        orig, orig_ladder = clf._k_rescore, clf._k_ladder
-        orig_chain = {"chain": dc.run_chain_kernel,
-                      "m3_chain": dc.run_m3_kernel}
-
-        def capture_chain(name):
-            def run(anc, n_anc):
-                if name == "m3_chain" or len(chain_calls[name]) < 3:
-                    chain_calls[name].append((anc, n_anc))
-                return orig_chain[name](anc, n_anc)
-            return run
-
-        def capture(inp):
-            captured.setdefault(int(inp.anchors.shape[1]), inp)
-            return orig(inp)
-
-        def capture_ladder(kind, *a, iv_cap=ladder.IV_HOT):
-            # a[0] is the batch's codes_fr
-            first = not ladder_calls or ladder_calls[0][2][0] is a[0]
-            if (iv_cap == ladder.IV_HOT and first) or (
-                    iv_cap is None and not any(
-                        k == kind and c is None for k, c, _ in ladder_calls)):
-                ladder_calls.append((kind, iv_cap, a))
-            return orig_ladder(kind, *a, iv_cap=iv_cap)
-
-        clf._k_rescore, clf._k_ladder = capture, capture_ladder
-        dc.run_chain_kernel = capture_chain("chain")
-        dc.run_m3_kernel = capture_chain("m3_chain")
+    def zero_counts():
         for k in kernels.values():
             k.launches = 0
         for f in eager.values():
             f.runs = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+
+    def check_counts(what):
+        """The path kernels' launches and the eager functions' runs since
+        ``zero_counts``: a path kernel not launched, or an eager function
+        run on the card, fails the run."""
+        launches = {n: k.launches for n, k in kernels.items()}
+        eager_runs = {n: f.runs for n, f in eager.items()}
+        for name in ("rescore", "fast_ladder", "slow_ladder", "chain",
+                     "m3_chain"):
+            if launches[name] <= 0:
+                failures.append(f"kernel {name} was not launched by the "
+                                f"{what} run")
+        for name, n in eager_runs.items():
+            if n:
+                failures.append(f"the eager {name} ran {n} times on the "
+                                f"card in the {what} run")
+        log(f"{what} launches: " + json.dumps(launches)
+            + "; eager runs " + json.dumps(eager_runs))
+        return launches
+
+    def classify(batch, what):
+        """A new DeviceClassifier over ``batch`` through ``classify_reads``
+        (pipelined from two batches on), the kernels' counts (and the eager
+        ladders' and chaining functions' runs) zeroed just before and read
+        just after, its SAM held against gold's, each batch's prep, device
+        phase and finish logged (start and end, from the call's start).
+        Returns (classifier, its SAM, the first batch's first rescore input
+        per anchor width (a later batch's where the first had none),
+        launches, [(kind, iv_cap, arguments)] of the first batch's ladder
+        calls and, of each kind, the run's first at the full SP_SET tier,
+        and the chaining calls' (anc, n_anc): the first batch's first three
+        M2 calls and every M3 call). Batches run on worker threads, so a
+        call is told to its batch by a thread-local set around each device
+        phase."""
+        clf = DeviceClassifier(idx, opts, "cuda")
+        bs = clf.batch_size
+        first_of = {id(batch[i]): i // bs for i in range(0, len(batch), bs)}
+        tl = threading.local()
+        spans = collections.defaultdict(dict)
+        t_call = [0.0]
+
+        def span(b, stage, t0):
+            spans[b][stage] = (t0 - t_call[0], time.perf_counter() - t_call[0])
+
+        captured_all, ladder_calls = {}, []
+        chain_calls = {"chain": [], "m3_chain": []}
+        orig, orig_ladder = clf._k_rescore, clf._k_ladder
+        orig_prep, orig_phase = clf._prep_batch, clf._device_phase
+        # the island prep's three steps, seconds summed over threads
+        steps, steps_lock = collections.Counter(), threading.Lock()
+        orig_steps = {"encode": native.encode_batch,
+                      "bloom probe": clf._k_bloom,
+                      "segmentation": native.islands_batch}
+
+        def timed(name):
+            def run(*a):
+                t0 = time.perf_counter()
+                out = orig_steps[name](*a)
+                with steps_lock:
+                    steps[name] += time.perf_counter() - t0
+                return out
+            return run
+        orig_chain = {"chain": dc.run_chain_kernel,
+                      "m3_chain": dc.run_m3_kernel}
+
+        def first_batch():
+            return getattr(tl, "batch", None) == 0
+
+        def capture_chain(name):
+            def run(anc, n_anc):
+                if name == "m3_chain" or (first_batch()
+                                          and len(chain_calls[name]) < 3):
+                    chain_calls[name].append((anc, n_anc))
+                return orig_chain[name](anc, n_anc)
+            return run
+
+        def capture(inp):
+            captured_all.setdefault((tl.batch, int(inp.anchors.shape[1])),
+                                    inp)
+            return orig(inp)
+
+        def capture_ladder(kind, *a, iv_cap=ladder.IV_HOT):
+            if (iv_cap == ladder.IV_HOT and first_batch()) or (
+                    iv_cap is None and not any(
+                        k == kind and c is None for k, c, _ in ladder_calls)):
+                ladder_calls.append((kind, iv_cap, a))
+            return orig_ladder(kind, *a, iv_cap=iv_cap)
+
+        def prep(recs):
+            t0 = time.perf_counter()
+            out = orig_prep(recs)
+            span(first_of[id(recs[0])], "prep", t0)
+            return out
+
+        def phase(recs, prep=None):
+            b = first_of[id(recs[0])]
+            t0 = time.perf_counter()
+            tl.batch = b
+            try:
+                fin = orig_phase(recs, prep)
+            finally:
+                tl.batch = None
+            span(b, "device", t0)
+
+            def finish():
+                t1 = time.perf_counter()
+                out = fin()
+                span(b, "finish", t1)
+                return out
+            return finish
+
+        clf._k_rescore, clf._k_ladder = capture, capture_ladder
+        clf._prep_batch, clf._device_phase = prep, phase
+        native.encode_batch = timed("encode")
+        clf._k_bloom = timed("bloom probe")
+        native.islands_batch = timed("segmentation")
+        dc.run_chain_kernel = capture_chain("chain")
+        dc.run_m3_kernel = capture_chain("m3_chain")
+        log(f"{what}: batches of {bs}, DESAMBA_PIPE_DEPTH "
+            f"{os.environ.get('DESAMBA_PIPE_DEPTH', '3 (default)')}, "
+            f"DESAMBA_PREP_WORKERS "
+            f"{os.environ.get('DESAMBA_PREP_WORKERS', '2 (default)')}, "
+            f"os.cpu_count() {os.cpu_count()}")
+        zero_counts()
+        t0 = t_call[0] = time.perf_counter()
         res = list(clf.classify_reads(batch))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {n: k.launches for n, k in kernels.items()}
-        eager_runs = {n: f.runs for n, f in eager.items()}
+        launches = check_counts(what)
         clf._k_rescore, clf._k_ladder = orig, orig_ladder
+        clf._prep_batch, clf._device_phase = orig_prep, orig_phase
+        native.encode_batch = orig_steps["encode"]
+        clf._k_bloom = orig_steps["bloom probe"]
+        native.islands_batch = orig_steps["segmentation"]
         dc.run_chain_kernel = orig_chain["chain"]
         dc.run_m3_kernel = orig_chain["m3_chain"]
+        captured = {}
+        for (_, width), inp in sorted(captured_all.items(),
+                                      key=lambda kv: kv[0]):
+            captured.setdefault(width, inp)
+        del captured_all
         got = "".join(format_result(r, idx.ref_name, opts) for r in res)
         log(f"{what}: {len(batch)} reads in {wall:.3f} s = "
             f"{len(batch) / wall:.1f} reads/s on {kind}")
-        log("stage wall s: " + json.dumps(
+        for b in sorted(spans):
+            log(f"{what} batch {b + 1}: " + ", ".join(
+                f"{stage} {a:.3f}-{e:.3f} s" for stage, (a, e)
+                in sorted(spans[b].items(), key=lambda kv: kv[1])))
+        log("stage wall s (summed over threads): " + json.dumps(
             {k: round(v, 3) for k, v in clf.stage_s.items()}))
+        log("island prep steps s (summed over threads): " + json.dumps(
+            {k: round(v, 3) for k, v in steps.items()}))
         log("fallback: " + json.dumps(clf.fallback_stats()))
         gold = ClassifyEngine(idx, opts)
         t0 = time.perf_counter()
@@ -720,24 +845,77 @@ def main():
         else:
             log(f"{what}: SAM byte-equal to gold: {len(got.splitlines())} "
                 f"lines")
-        for name in ("rescore", "fast_ladder", "slow_ladder", "chain",
-                     "m3_chain"):
-            if launches[name] <= 0:
-                failures.append(f"kernel {name} was not launched by the "
-                                f"{what} run")
-        for name, n in eager_runs.items():
-            if n:
-                failures.append(f"the eager {name} ran {n} times on the "
-                                f"card in the {what} run")
-        log(f"{what} launches: " + json.dumps(launches)
-            + "; eager runs " + json.dumps(eager_runs))
-        return clf, captured, launches, ladder_calls, chain_calls
+        return clf, got, captured, launches, ladder_calls, chain_calls
 
-    dev, captured, launches, ladder_calls, chain_calls = classify(
+    dev, sam3, captured, launches, ladder_calls, chain_calls = classify(
         reads, "end to end")
     fb = dev.fallback_stats()
     if fb["slow_path_reads"] <= 0 or fb["m3_path_reads"] <= 0:
         failures.append("the slow path or the M3 path was not taken")
+
+    # ---- 3b. the CLI on the card --------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        save_index(idx, os.path.join(tmp, "idx"))
+        fq = os.path.join(tmp, "reads.fq")
+        with open(fq, "w") as f:
+            for r in reads:
+                f.write(f"@{r.name}\n{r.seq}\n+\n{'I' * len(r.seq)}\n")
+        threads = min(8, os.cpu_count())
+        walls = {}
+        for engine, extra in (("device", []), ("gold", ["-t", str(threads)])):
+            out = os.path.join(tmp, f"{engine}.sam")
+            if engine == "device":
+                zero_counts()
+            t0 = time.perf_counter()
+            cli.main(["classify", os.path.join(tmp, "idx"), fq, "-o", out,
+                      "--engine", engine] + extra)
+            walls[engine] = time.perf_counter() - t0
+            if engine == "device":
+                check_counts("CLI --engine device")
+            with open(out) as f:
+                walls[engine, "sam"] = f.read()
+    gold1 = ClassifyEngine(idx, opts)
+    t0 = time.perf_counter()
+    gold_t1 = "".join(gold1.classify_records_formatted(reads, threads=1))
+    walls["gold1"] = time.perf_counter() - t0
+    del gold1
+    log(f"CLI on {card}: classify --engine device {walls['device']:.3f} s "
+        f"(classify_file), --engine gold -t {threads} {walls['gold']:.3f} s; "
+        f"classify_records_formatted at one thread {walls['gold1']:.3f} s; "
+        f"{len(reads)} reads, os.cpu_count() {os.cpu_count()}")
+    if walls["device", "sam"] != sam3:
+        failures.append("CLI --engine device: SAM differs from phase 3's")
+    if walls["gold", "sam"] != gold_t1:
+        failures.append(f"CLI --engine gold -t {threads}: SAM differs from "
+                        f"classify_records_formatted at one thread")
+    else:
+        log(f"CLI: device SAM byte-equal to phase 3's, gold -t {threads} SAM "
+            f"byte-equal to one thread's: {len(gold_t1.splitlines())} lines")
+    del walls, gold_t1
+
+    # ---- 3c. pipeline depths (--depths) -------------------------------------
+    depth_walls = collections.defaultdict(list)
+    for d in [x for x in args.depths.split(",") if x]:
+        os.environ["DESAMBA_PIPE_DEPTH"] = d
+        clf = DeviceClassifier(idx, opts, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = "".join(format_result(r, idx.ref_name, opts)
+                      for r in clf.classify_reads(reads))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        depth_walls[d].append(wall)
+        log(f"depth {d}: {wall:.3f} s end to end; stage wall s (summed over "
+            f"threads): " + json.dumps(
+                {k: round(v, 3) for k, v in clf.stage_s.items()}))
+        if got != sam3:
+            failures.append(f"depth {d}: SAM differs from phase 3's")
+        del clf
+    os.environ.pop("DESAMBA_PIPE_DEPTH", None)
+    if depth_walls:
+        log(f"pipeline depths on {card}: " + "; ".join(
+            f"depth {d}: " + ", ".join(f"{w:.3f}" for w in ws) + " s"
+            for d, ws in sorted(depth_walls.items())))
 
     def check_k1(what, clf, captured):
         """K1 on each captured batch of ``clf``'s run against its plain
@@ -800,7 +978,7 @@ def main():
         return recs
 
     # ---- 4. long reads ------------------------------------------------------
-    long_clf, long_captured, _, _, _ = classify(long_batch, "long reads")
+    long_clf, _, long_captured, _, _, _ = classify(long_batch, "long reads")
     long_recs = check_k1("long reads", long_clf, long_captured)
     if not long_recs or min(r["K"] for r in long_recs) < LONG_READ:
         failures.append("long reads: no rescore batch at a long read's width")

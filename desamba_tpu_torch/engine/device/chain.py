@@ -139,10 +139,11 @@ def chain_kernel(anc, n_anc):
 chain_kernel.runs = 0   # calls of the plain version
 
 
-def _launch(entry, anc, n_anc, *extra):
-    """Launch ``entry`` of ``chain_lib()`` on CUDA tensors: (chains, n_out,
-    pre, ovf) as the plain versions return them. A refused launch raises."""
-    from ...kernels.build import chain_lib
+def _launch(entry, wrapper, anc, n_anc, *extra):
+    """Launch ``entry`` of ``chain_lib()`` on CUDA tensors and count it in
+    ``wrapper.launches``: (chains, n_out, pre, ovf) as the plain versions
+    return them. A refused launch raises."""
+    from ...kernels.build import LAUNCH_LOCK, chain_lib
 
     if anc.device.type != "cuda" or n_anc.device != anc.device:
         raise ValueError(f"{entry}: the tensors must be on one CUDA device")
@@ -157,21 +158,22 @@ def _launch(entry, anc, n_anc, *extra):
     n_out = torch.empty((B,), dtype=I32, device=dev)
     pre = torch.empty((B, A2), dtype=I32, device=dev)
     ovf = torch.empty((B,), dtype=torch.bool, device=dev)
-    rc = getattr(chain_lib(), entry)(
-        anc.data_ptr(), n_anc.data_ptr(), chains.data_ptr(), n_out.data_ptr(),
-        pre.data_ptr(), ovf.data_ptr(), B, A2, *extra,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+    lib = chain_lib()
+    with LAUNCH_LOCK:
+        rc = getattr(lib, entry)(
+            anc.data_ptr(), n_anc.data_ptr(), chains.data_ptr(),
+            n_out.data_ptr(), pre.data_ptr(), ovf.data_ptr(), B, A2, *extra,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+        wrapper.launches += 1
     return chains, n_out, pre, ovf
 
 
 def chain_kernel_cuda(anc, n_anc):
     """Launch the M2 kernel (a warp per read) on CUDA tensors;
     returns what ``chain_kernel`` returns."""
-    out = _launch("chain_m2_launch", anc, n_anc)
-    chain_kernel_cuda.launches += 1
-    return out
+    return _launch("chain_m2_launch", chain_kernel_cuda, anc, n_anc)
 
 
 chain_kernel_cuda.launches = 0
@@ -382,9 +384,8 @@ def m3_kernel_cuda(anc, n_anc):
                          f"{M3_MAX_A2}")
     warps = m3_warps(anc.shape[0], torch.cuda.get_device_properties(
         anc.device).multi_processor_count) if anc.is_cuda else 0
-    out = _launch("chain_m3_launch", anc, n_anc, m3_smem_bytes(A2), warps)
-    m3_kernel_cuda.launches += 1
-    return out
+    return _launch("chain_m3_launch", m3_kernel_cuda, anc, n_anc,
+                   m3_smem_bytes(A2), warps)
 
 
 m3_kernel_cuda.launches = 0

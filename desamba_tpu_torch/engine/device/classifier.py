@@ -20,13 +20,27 @@ A read goes to the gold oracle only where the JAX classifier sends it:
 ladder pack overflow, chain-slot overflow, too many anchors or chains, or
 a rescore fallback. ``fallback_stats()`` counts them by cause, and
 ``stage_s`` holds the wall seconds spent in each stage (every stage ends
-in a host fetch, which waits for the card). Batches run one after
-another; output order and StreamState updates are serial.
+in a host fetch, which waits for the card), summed over the threads that
+ran it: with batches in flight the stages overlap, and their sum may pass
+the wall time.
+
+``classify_reads`` pipelines its batches as the JAX classifier does (the
+reference's kt_pipeline, src/lib/kthread.c:157-197): batch N+1's island
+prep runs on a prep thread, up to ``DESAMBA_PIPE_DEPTH`` device phases (3
+by default) run on worker threads, and each batch's finish runs on the
+caller's thread strictly in input order, so StreamState is updated
+serially and the SAM is the serial schedule's, byte for byte.
+``DESAMBA_PREP_WORKERS`` (2) sets the prep threads. The threads share the
+card's current stream, so the card runs their kernels one after another.
+``classify_file`` parses on a reader thread and preps one batch ahead.
 """
 from __future__ import annotations
 
+import os
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -109,6 +123,10 @@ class DeviceClassifier:
         self.gold = ClassifyEngine(idx, self.opts)  # fallback + host tables
         self.state = StreamState()
         self.batch_size = batch_size
+        # the counters that device phases write from worker threads
+        # (stage_s, n_slow, n_m3) change under this lock; those that the
+        # finish writes stay on the caller's thread
+        self._lock = threading.Lock()
         self.n_fallback = 0     # reads rescued by the gold oracle
         self.n_classified = 0
         self.n_slow = 0         # reads that ran the slow ladders
@@ -131,7 +149,8 @@ class DeviceClassifier:
     def _lap(self, stage, t0):
         """Add the wall time since ``t0`` to ``stage``; returns now."""
         t = time.perf_counter()
-        self.stage_s[stage] += t - t0
+        with self._lock:
+            self.stage_s[stage] += t - t0
         return t
 
     # ---- island stage ------------------------------------------------------
@@ -367,22 +386,70 @@ class DeviceClassifier:
 
     # ---- main entry --------------------------------------------------------
     def classify_reads(self, recs):
-        """Classify records in batches of batch_size, one after another;
-        yields ReadResults in input order."""
-        for i in range(0, len(recs), self.batch_size):
-            yield from self._classify_batch(recs[i : i + self.batch_size])
+        """Classify records in batches of batch_size, pipelined (module
+        docstring); yields ReadResults in input order. One batch runs
+        serially on the caller's thread. Each batch's futures are dropped
+        once their results are taken, and closing the generator early
+        cancels the batches not started and joins every thread."""
+        batches = [recs[i : i + self.batch_size]
+                   for i in range(0, len(recs), self.batch_size)]
+        if len(batches) <= 1:
+            for b in batches:
+                yield from self._classify_batch(b)
+            return
+        n = len(batches)
+        depth = int(os.environ.get("DESAMBA_PIPE_DEPTH", "3"))
+        prep_ex = ThreadPoolExecutor(
+            int(os.environ.get("DESAMBA_PREP_WORKERS", "2")),
+            thread_name_prefix="desamba-prep")
+        dev_ex = ThreadPoolExecutor(depth, thread_name_prefix="desamba-dev")
+        try:
+            preps = {k: prep_ex.submit(self._prep_batch, batches[k])
+                     for k in range(min(depth + 1, n))}
+            phases = deque()
+
+            def start(k):
+                phases.append(dev_ex.submit(self._device_phase, batches[k],
+                                            preps.pop(k).result()))
+
+            for k in range(min(depth, n)):
+                start(k)
+            for bi in range(n):
+                nxt = bi + depth
+                if nxt < n:
+                    start(nxt)
+                    if nxt + 1 < n:
+                        preps[nxt + 1] = prep_ex.submit(self._prep_batch,
+                                                        batches[nxt + 1])
+                finish = phases.popleft().result()
+                yield from finish()
+                del finish
+        finally:
+            for ex in (prep_ex, dev_ex):
+                ex.shutdown(wait=True, cancel_futures=True)
 
     def classify_file(self, path):
-        from ...io.fastx import read_fastx_fast as read_fastx
+        """Classify the records of a FASTA/FASTQ file: a reader thread
+        parses batch N+1 while batch N classifies, batch N+1's island prep
+        runs one batch ahead, and results come in input order. A parse
+        error is raised after the batches before it."""
+        from ...io.prefetch import prefetch_batches
 
-        batch = []
-        for rec in read_fastx(path):
-            batch.append(rec)
-            if len(batch) >= self.batch_size:
-                yield from self._classify_batch(batch)
-                batch = []
-        if batch:
-            yield from self._classify_batch(batch)
+        batches = prefetch_batches(path, self.batch_size)
+        prep_ex = ThreadPoolExecutor(1, thread_name_prefix="desamba-prep")
+        try:
+            prev = None          # (batch, its prep future), one batch ahead
+            for batch in batches:
+                nxt = (batch, prep_ex.submit(self._prep_batch, batch))
+                if prev is not None:
+                    yield from self._classify_batch(prev[0],
+                                                    prev[1].result())
+                prev = nxt
+            if prev is not None:
+                yield from self._classify_batch(prev[0], prev[1].result())
+        finally:
+            batches.close()
+            prep_ex.shutdown(wait=True, cancel_futures=True)
 
     def _classify_batch(self, recs, prep=None):
         return self._device_phase(recs, prep)()
@@ -549,7 +616,8 @@ class DeviceClassifier:
         for k in np.flatnonzero(run_slow):
             results[todo[k]].fast = False
         slow_reads0 = np.flatnonzero(run_slow)
-        self.n_slow += len(slow_reads0)
+        with self._lock:
+            self.n_slow += len(slow_reads0)
         str0 = (2 * slow_reads0 + d0[slow_reads0]).astype(np.int64)
         slow0_ls = lanes_for(
             str0, lambda sidx, sstr: (seeds[sidx, 1] >= 3) | first_top[sstr])
@@ -633,7 +701,8 @@ class DeviceClassifier:
         m3_row = {k: u for u, (k, _, _) in enumerate(m3_final)}
         for k in m3_row:
             live_np[k] = False
-        self.n_m3 += len(m3_final)
+        with self._lock:
+            self.n_m3 += len(m3_final)
         chs3 = torch.stack([set_f[0], set_s0[0], set_s1[0]])
         ns3 = torch.stack([set_f[1], set_s0[1], set_s1[1]])
         pre3 = torch.stack([set_f[2], set_s0[2], set_s1[2]])

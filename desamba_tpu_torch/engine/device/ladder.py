@@ -245,11 +245,11 @@ def ladder_outputs(t, pack_cap: int):
                              t["iv_ovf"]), p_ovf
 
 
-def _launch(entry, args, kw, pack_cap):
-    """Launch ladder kernel ``entry`` of ``ladder_lib()`` on CUDA tensors;
-    returns (what the plain version returns, the lanes' trips). A refused
-    launch raises."""
-    from ...kernels.build import ladder_lib
+def _launch(entry, args, kw, pack_cap, wrapper):
+    """Launch ladder kernel ``entry`` of ``ladder_lib()`` on CUDA tensors
+    and count it in ``wrapper.launches``; returns (what the plain version
+    returns, the lanes' trips). A refused launch raises."""
+    from ...kernels.build import LAUNCH_LOCK, ladder_lib
 
     lane_args = args[9]
     if lane_args.device.type != "cuda":
@@ -259,11 +259,13 @@ def _launch(entry, args, kw, pack_cap):
     if lib.ladder_args_size() != ctypes.sizeof(LadderArgs):
         raise RuntimeError("ladder kernel: LadderArgs differs from the "
                            "kernel's struct")
-    rc = getattr(lib, entry)(
-        ctypes.addressof(largs),
-        torch.cuda.current_stream(lane_args.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+    with LAUNCH_LOCK:
+        rc = getattr(lib, entry)(
+            ctypes.addressof(largs),
+            torch.cuda.current_stream(lane_args.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} failed: CUDA error {rc}")
+        wrapper.launches += 1
     return ladder_outputs(t, pack_cap), t["trips"]
 
 
@@ -274,8 +276,8 @@ def fast_ladder_cuda(*args, l_ek: int, a_cap: int, pack_cap: int,
     in ``fast_ladder_cuda.trips`` (NB,). A refused launch raises."""
     out, fast_ladder_cuda.trips = _launch(
         "ladder_fast_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
-                                         iv_cap=iv_cap), pack_cap)
-    fast_ladder_cuda.launches += 1
+                                         iv_cap=iv_cap), pack_cap,
+        fast_ladder_cuda)
     return out
 
 
@@ -381,8 +383,7 @@ def slow_ladder_cuda(*args, l_ek: int, a_cap: int, m_cap: int,
     out, slow_ladder_cuda.trips = _launch(
         "ladder_slow_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
                                          iv_cap=iv_cap, m_cap=m_cap),
-        pack_cap)
-    slow_ladder_cuda.launches += 1
+        pack_cap, slow_ladder_cuda)
     return out
 
 

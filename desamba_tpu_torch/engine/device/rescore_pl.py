@@ -136,7 +136,7 @@ def smem_bytes(A2: int, K: int) -> int:
 def rescore_cuda(prep):
     """Launch the CUDA kernel on a prepared batch of CUDA tensors.
     Returns (chains (B, C_CAP, CF_N), flags (B, 3)) int32 on the card."""
-    from ...kernels.build import rescore_lib
+    from ...kernels.build import LAUNCH_LOCK, rescore_lib
 
     B, A2, af = prep["anchors"].shape
     if af != 4 or prep["chains"].shape[1:] != (C_CAP, CF_N):
@@ -155,20 +155,22 @@ def rescore_cuda(prep):
     chains_out = torch.empty((B, C_CAP, CF_N), dtype=I32, device=dev)
     flags = torch.empty((B, 3), dtype=I32, device=dev)
     lib = rescore_lib()
-    rc = lib.rescore_launch(
-        prep["scal"].data_ptr(), prep["chains"].data_ptr(),
-        prep["anchors"].data_ptr(), prep["schash"].data_ptr(),
-        prep["codes_pk"].data_ptr(), prep["rk_vals"].data_ptr(),
-        prep["rk_pos"].data_ptr(), prep["ref_words"].data_ptr(),
-        prep["ref_off"].data_ptr(), prep["ref_len"].data_ptr(),
-        chains_out.data_ptr(), flags.data_ptr(),
-        B, A2, prep["codes_pk"].shape[1], K,
-        prep["ref_words"].shape[0] // LANES, prep["ref_off"].shape[0],
-        prep["n_bases"], prep["last_char"], nbytes,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"rescore kernel launch failed: CUDA error {rc}")
-    rescore_cuda.launches += 1
+    with LAUNCH_LOCK:
+        rc = lib.rescore_launch(
+            prep["scal"].data_ptr(), prep["chains"].data_ptr(),
+            prep["anchors"].data_ptr(), prep["schash"].data_ptr(),
+            prep["codes_pk"].data_ptr(), prep["rk_vals"].data_ptr(),
+            prep["rk_pos"].data_ptr(), prep["ref_words"].data_ptr(),
+            prep["ref_off"].data_ptr(), prep["ref_len"].data_ptr(),
+            chains_out.data_ptr(), flags.data_ptr(),
+            B, A2, prep["codes_pk"].shape[1], K,
+            prep["ref_words"].shape[0] // LANES, prep["ref_off"].shape[0],
+            prep["n_bases"], prep["last_char"], nbytes,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"rescore kernel launch failed: CUDA error "
+                               f"{rc}")
+        rescore_cuda.launches += 1
     return chains_out, flags
 
 

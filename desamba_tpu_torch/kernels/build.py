@@ -6,6 +6,12 @@ beside them are shared device code). It is compiled with
 first use, and loaded with ctypes: no PyTorch headers, so a build takes
 seconds. Nothing is compiled at import time, and nothing catches a failed
 build: a missing ``nvcc`` or a compile error raises.
+
+Host threads share the kernels: ``load`` and ``_bound`` build, load and
+bind a source once under one lock, and ``LAUNCH_LOCK`` makes each launch
+one critical section (a launcher may set its kernel's shared-memory limit
+before it launches, and another thread must not change that limit in
+between).
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -23,6 +30,8 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
+_LOAD_LOCK = threading.Lock()   # one build, load and binding a source
+LAUNCH_LOCK = threading.Lock()  # held by the wrappers around each launch
 
 
 def _nvcc():
@@ -72,16 +81,22 @@ def finish_build(src, proc):
 def build_all():
     """Build every kernel source at once, one nvcc each, all started
     together. Returns {source: nvcc output}."""
-    procs = {src: start_build(src) for src in SOURCES}
-    return {src: finish_build(src, p) for src, p in procs.items()}
+    with _LOAD_LOCK:
+        procs = {src: start_build(src) for src in SOURCES}
+        return {src: finish_build(src, p) for src, p in procs.items()}
 
 
 def load(src):
-    """The ctypes library of one kernel source, built on first use."""
-    if src not in _libs:
-        finish_build(src, start_build(src))
-        _libs[src] = ctypes.CDLL(_lib_path(src))
-    return _libs[src]
+    """The ctypes library of one kernel source, built on first use (once,
+    whichever thread comes first)."""
+    lib = _libs.get(src)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _libs.get(src)
+            if lib is None:
+                finish_build(src, start_build(src))
+                lib = _libs[src] = ctypes.CDLL(_lib_path(src))
+    return lib
 
 
 def _bound(src, signatures):
@@ -91,12 +106,14 @@ def _bound(src, signatures):
     returns the CUDA error code of its launch."""
     lib = load(src)
     if not getattr(lib, "_bound", False):
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
-        for name, sig in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [kinds[c] for c in sig]
-            fn.restype = ctypes.c_int
-        lib._bound = True
+        with _LOAD_LOCK:
+            if not getattr(lib, "_bound", False):
+                kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+                for name, sig in signatures.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = [kinds[c] for c in sig]
+                    fn.restype = ctypes.c_int
+                lib._bound = True
     return lib
 
 

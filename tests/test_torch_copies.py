@@ -2,8 +2,10 @@
 tolerance 0 (the pipeline is integer throughout): ``build_index`` (in RAM
 and through the external-memory builder) gives the same index field by
 field, the gold ``ClassifyEngine`` writes the same SAM, the constants are
-equal name for name, and the port's native library builds without a race
-when several processes build it at once."""
+equal name for name, the copies of ``analysis/`` and ``index/compat.py``
+are the originals' sources and export and load the reference's index
+format alike, and the port's native library builds without a race when
+several processes build it at once."""
 import dataclasses
 import os
 import subprocess
@@ -119,3 +121,51 @@ def test_native_builds_race_free(tmp_path):
         assert out.strip() == "True"
     assert [str(f) for f in tmp_path.iterdir()] == [
         native.lib_path(str(tmp_path))]
+
+
+VERBATIM = ["analysis/__init__.py", "analysis/taxonomy.py",
+            "analysis/evaluate.py", "index/compat.py"]
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copy_equals_its_original(path):
+    """These copies import only relative to their package, so they are the
+    original files byte for byte."""
+    with open(os.path.join(REPO, "desamba_tpu", path), "rb") as f:
+        exp = f.read()
+    with open(os.path.join(REPO, "desamba_tpu_torch", path), "rb") as f:
+        assert f.read() == exp
+
+
+def test_compat_export_and_load_equal_jax(small_my_index, tmp_path):
+    """The reference's index format of one index, written by each
+    package, file for file; each package's loader reads it back with the
+    same outcome."""
+    from desamba_tpu.index.compat import export_reference_format as jexp
+    from desamba_tpu.index.compat import load_reference_index as jload
+    from desamba_tpu_torch.index.compat import (export_reference_format,
+                                                load_reference_index)
+
+    jexp(small_my_index, str(tmp_path / "jax"))
+    export_reference_format(port_index(small_my_index),
+                            str(tmp_path / "port"))
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert "deSAMBA.bwt" in names
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    for n in names:
+        assert (tmp_path / "port" / n).read_bytes() == \
+            (tmp_path / "jax" / n).read_bytes(), n
+    def outcome(load, d):
+        # the reader's result, or what it raised (the JAX reader rejects
+        # this index's export: it trims the rows at the last valid code)
+        try:
+            idx = load(str(d))
+        except Exception as e:
+            return type(e).__name__, str(e)
+        return [(f.name, getattr(idx, f.name).tolist()
+                 if isinstance(getattr(idx, f.name), np.ndarray)
+                 else getattr(idx, f.name))
+                for f in dataclasses.fields(idx)]
+
+    assert outcome(load_reference_index, tmp_path / "port") == \
+        outcome(jload, tmp_path / "jax")
