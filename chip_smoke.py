@@ -39,6 +39,22 @@ and a C compiler. Phases:
    ``DESAMBA_PIPE_DEPTH`` of the list, in its order, with a new classifier
    each time: the wall and stage times of each, its SAM byte-equal to
    phase 3's;
+3d. the mesh, the bootstrap and the entry, on phase 3's first batch
+   (2,048 reads) with fresh classifiers: a DeviceClassifier, then a
+   MeshClassifier on a (2, 2) mesh of ``cuda:0`` repeated (and on a
+   (2, 1) mesh of two cards where there are two), each SAM byte-equal to
+   phase 3's first 2,048 records, the kernels' counts zeroed just before
+   and read just after: each sharded stage's kernel (B2, B3, M2, the main
+   batch's K1) launched once a dp row for each call of the stage, M3 and
+   the M3 sub-batch's K1 once a call, B3 and M3 wherever the single
+   classifier launched them, no eager ladder or chaining function; the
+   walls and the reads to gold by cause printed beside the single
+   classifier's; then ``distributed.initialize`` on a free localhost port
+   at world size 1 over NCCL, the multi-process worker's ``all_reduce`` of
+   the read count and its ordered gather of the SAM bytes, exact, and
+   ``destroy_process_group``; then ``entry()``'s step on the first batch
+   three times, timed by CUDA events, its tensors bit-equal to those of
+   phase 3's first device phase;
 4. long reads: a new DeviceClassifier over one batch of 64 reads, the
    first 62 of phase 3's and two of at least 250 kb (a chimera of whole
    references end to end, and a span of one reference inside random
@@ -157,6 +173,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -598,12 +615,16 @@ def main():
     from desamba_tpu_torch.engine.device.classifier import (A_CAP, M_CAP,
                                                             DeviceClassifier)
     from desamba_tpu_torch.engine.gold.classify import ClassifyEngine, Options
+    from desamba_tpu_torch.entry import entry
     from desamba_tpu_torch.index.build import build_index
     from desamba_tpu_torch.index.store import save_index
     from desamba_tpu_torch.io import native
     from desamba_tpu_torch.io.sam import format_result
     from desamba_tpu_torch.kernels import build
+    from desamba_tpu_torch.parallel import (MeshClassifier, distributed,
+                                            make_mesh)
     from desamba_tpu_torch.tools import caps, micro
+    from desamba_tpu_torch.tools import multihost_worker as mhw
     from desamba_tpu_torch.tools import gather_bench as gb
     from desamba_tpu_torch.tools.cmpcount import (compare_count,
                                                   compare_count_plain)
@@ -723,9 +744,10 @@ def main():
         def span(b, stage, t0):
             spans[b][stage] = (t0 - t_call[0], time.perf_counter() - t_call[0])
 
-        captured_all, ladder_calls = {}, []
+        captured_all, ladder_calls, step_tensors = {}, [], {}
         chain_calls = {"chain": [], "m3_chain": []}
         orig, orig_ladder = clf._k_rescore, clf._k_ladder
+        orig_step = clf._device_step
         orig_prep, orig_phase = clf._prep_batch, clf._device_phase
         # the island prep's three steps, seconds summed over threads
         steps, steps_lock = collections.Counter(), threading.Lock()
@@ -767,6 +789,12 @@ def main():
                 ladder_calls.append((kind, iv_cap, a))
             return orig_ladder(kind, *a, iv_cap=iv_cap)
 
+        def capture_step(recs, prep=None):
+            step = orig_step(recs, prep)
+            if first_batch():
+                step_tensors.update(step.tensors)
+            return step
+
         def prep(recs):
             t0 = time.perf_counter()
             out = orig_prep(recs)
@@ -792,6 +820,7 @@ def main():
 
         clf._k_rescore, clf._k_ladder = capture, capture_ladder
         clf._prep_batch, clf._device_phase = prep, phase
+        clf._device_step = capture_step
         native.encode_batch = timed("encode")
         clf._k_bloom = timed("bloom probe")
         native.islands_batch = timed("segmentation")
@@ -810,6 +839,7 @@ def main():
         launches = check_counts(what)
         clf._k_rescore, clf._k_ladder = orig, orig_ladder
         clf._prep_batch, clf._device_phase = orig_prep, orig_phase
+        clf._device_step = orig_step
         native.encode_batch = orig_steps["encode"]
         clf._k_bloom = orig_steps["bloom probe"]
         native.islands_batch = orig_steps["segmentation"]
@@ -820,7 +850,8 @@ def main():
                                       key=lambda kv: kv[0]):
             captured.setdefault(width, inp)
         del captured_all
-        got = "".join(format_result(r, idx.ref_name, opts) for r in res)
+        parts = [format_result(r, idx.ref_name, opts) for r in res]
+        got = "".join(parts)
         log(f"{what}: {len(batch)} reads in {wall:.3f} s = "
             f"{len(batch) / wall:.1f} reads/s on {kind}")
         for b in sorted(spans):
@@ -845,10 +876,14 @@ def main():
         else:
             log(f"{what}: SAM byte-equal to gold: {len(got.splitlines())} "
                 f"lines")
-        return clf, got, captured, launches, ladder_calls, chain_calls
+        return dict(clf=clf, sam=got, parts=parts, captured=captured,
+                    launches=launches, ladder_calls=ladder_calls,
+                    chain_calls=chain_calls, step_tensors=step_tensors)
 
-    dev, sam3, captured, launches, ladder_calls, chain_calls = classify(
-        reads, "end to end")
+    run3 = classify(reads, "end to end")
+    dev, sam3, captured, launches = (run3["clf"], run3["sam"],
+                                     run3["captured"], run3["launches"])
+    ladder_calls, chain_calls = run3["ladder_calls"], run3["chain_calls"]
     fb = dev.fallback_stats()
     if fb["slow_path_reads"] <= 0 or fb["m3_path_reads"] <= 0:
         failures.append("the slow path or the M3 path was not taken")
@@ -917,6 +952,135 @@ def main():
             f"depth {d}: " + ", ".join(f"{w:.3f}" for w in ws) + " s"
             for d, ws in sorted(depth_walls.items())))
 
+    # ---- 3d. the mesh, the distributed bootstrap and the entry -------------
+    bs = dev.batch_size
+    first_reads = reads[:bs]
+    sam_first = "".join(run3["parts"][:bs])
+
+    def mesh_run(clf, what):
+        """``clf`` over phase 3's first batch with a fresh state, the
+        kernels' counts zeroed just before and read just after; returns
+        (wall s, launches, calls of each sharded stage, SAM equal)."""
+        calls = collections.Counter()
+
+        def counted(name):
+            fn = getattr(clf, name)
+
+            def run(*a, **kw):
+                if name != "_k_ladder":
+                    calls[name] += 1
+                else:
+                    calls[f"_k_ladder {a[0]}"] += 1
+                return fn(*a, **kw)
+            return run
+
+        for name in ("_k_ladder", "_k_chain", "_k_chain_m3", "_k_rescore",
+                     "_k_rescore_m3"):
+            setattr(clf, name, counted(name))
+        zero_counts()
+        t0 = time.perf_counter()
+        got = "".join(format_result(r, idx.ref_name, opts)
+                      for r in clf.classify_reads(first_reads))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: k.launches for n, k in kernels.items()}
+        runs = {n: f.runs for n, f in eager.items()}
+        log(f"{what}: {len(first_reads)} reads in {wall:.3f} s; launches "
+            f"{json.dumps(counts)}; stage calls {json.dumps(calls)}; eager "
+            f"runs {json.dumps(runs)}; fallback by cause "
+            f"{json.dumps(clf.fallback_stats()['by_cause'])}")
+        for name, n in runs.items():
+            if n:
+                failures.append(f"{what}: the eager {name} ran {n} times")
+        if got != sam_first:
+            failures.append(f"{what}: SAM differs from phase 3's first "
+                            f"{len(first_reads)} records")
+        return wall, counts, calls, got == sam_first
+
+    single_wall, single_counts, _, _ = mesh_run(
+        DeviceClassifier(idx, opts, "cuda"), "single device, batch 1")
+
+    def check_mesh(mesh, what):
+        n_dp = mesh.shape["dp"]
+        clf = MeshClassifier(idx, opts, mesh=mesh)
+        wall, counts, calls, same = mesh_run(clf, what)
+        # each sharded stage launches its kernel once a dp row; the M3
+        # sub-batch runs on one device
+        want = {"fast_ladder": n_dp * calls["_k_ladder fast"],
+                "slow_ladder": n_dp * calls["_k_ladder slow"],
+                "chain": n_dp * calls["_k_chain"],
+                "rescore": n_dp * calls["_k_rescore"]
+                + calls["_k_rescore_m3"],
+                "m3_chain": calls["_k_chain_m3"]}
+        for name, n in want.items():
+            if counts[name] != n:
+                failures.append(f"{what}: {name} launched {counts[name]} "
+                                f"times, not {n}")
+        for name in ("fast_ladder", "rescore", "chain"):
+            if counts[name] < n_dp:
+                failures.append(f"{what}: {name} launched {counts[name]} "
+                                f"times")
+        for name in ("slow_ladder", "m3_chain"):
+            if single_counts[name] > 0 and counts[name] <= 0:
+                failures.append(f"{what}: {name} was not launched, where "
+                                f"one device launched it")
+        log(f"{what}: mesh {wall:.3f} s against one device's "
+            f"{single_wall:.3f} s on {card}; SAM "
+            + ("byte-equal to phase 3's" if same else "DIFFERS"))
+        return counts
+
+    check_mesh(make_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4),
+               "mesh (2, 2) of cuda:0")
+    if torch.cuda.device_count() >= 2:
+        check_mesh(make_mesh(2, 1), "mesh (2, 1) of cuda:0, cuda:1")
+    else:
+        log("one card: only the mesh of one repeated device ran (no mesh "
+            "over two distinct cards)")
+
+    # the distributed bootstrap: NCCL at world size 1, the worker's count
+    # and its ordered gather
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    if not distributed.initialize(f"localhost:{port}", 1, 0, backend="nccl"):
+        failures.append("distributed.initialize did not start a group")
+    try:
+        cdev = mhw.comm_device("nccl")
+        total = mhw.all_reduce_count(len(reads), cdev)
+        blob = sam_first.encode()
+        blobs = mhw.ordered_gather(blob, cdev)
+        log(f"distributed: NCCL world size "
+            f"{torch.distributed.get_world_size()}, all_reduce of the read "
+            f"count {total}, ordered gather of {len(blob)} SAM bytes "
+            f"{'equal' if blobs == [blob] else 'DIFFERS'}")
+        if total != len(reads) or blobs != [blob]:
+            failures.append("distributed: the count or the gather differs")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # the single-step entry on phase 3's first batch
+    step, step_args = entry(classifier=dev, recs=first_reads)
+    step_ms, step_out = [], None
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        step_out = step(*step_args)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    exp_t = run3["step_tensors"]
+    same = (sorted(step_out) == sorted(exp_t) and all(
+        step_out[k].dtype == t.dtype and torch.equal(step_out[k], t)
+        for k, t in exp_t.items()))
+    log(f"entry step on batch 1 ({len(first_reads)} reads): "
+        + ", ".join(f"{m:.3f}" for m in step_ms) + " ms by CUDA events; "
+        f"tensors {sorted(exp_t)} "
+        + ("bit-equal to phase 3's _device_phase" if same else "DIFFER"))
+    if not same:
+        failures.append("entry: the step's tensors differ from phase 3's "
+                        "batch 1")
+    del step_out, step, step_args
+
     def check_k1(what, clf, captured):
         """K1 on each captured batch of ``clf``'s run against its plain
         version (every row), timed, with its bound; one record a width."""
@@ -978,7 +1142,9 @@ def main():
         return recs
 
     # ---- 4. long reads ------------------------------------------------------
-    long_clf, _, long_captured, _, _, _ = classify(long_batch, "long reads")
+    long_run = classify(long_batch, "long reads")
+    long_clf, long_captured = long_run["clf"], long_run["captured"]
+    del long_run
     long_recs = check_k1("long reads", long_clf, long_captured)
     if not long_recs or min(r["K"] for r in long_recs) < LONG_READ:
         failures.append("long reads: no rescore batch at a long read's width")
@@ -1038,7 +1204,7 @@ def main():
         stream = torch.cuda.current_stream().cuda_stream
 
         def launch():
-            rc = entry(ctypes.addressof(largs), stream)
+            rc = entry(ctypes.addressof(largs), args[9].device.index, stream)
             if rc:
                 raise RuntimeError(f"ladder_{which}_launch: CUDA error {rc}")
 
@@ -1140,7 +1306,7 @@ def main():
         ptrs = [t.data_ptr() for t in (anc, n_anc, *outs)]
 
         def launch():
-            rc = entry(*ptrs, B, A2, *extra,
+            rc = entry(*ptrs, B, A2, *extra, anc.device.index,
                        torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"{name} launch: CUDA error {rc}")

@@ -34,8 +34,12 @@ means bit-equal):
   the JAX code relies on either rule.
 
 Every stage takes an explicit ``device``; the entry points
-(``DeviceClassifier``, ``cli``, ``tools.gather_bench``, ``tools.micro``,
-``tools.caps``) default to ``cuda``, and there is no ``torch.compile``. The
+(``DeviceClassifier``, ``parallel.MeshClassifier``, ``entry``, ``cli``,
+``tools.multihost_worker``, ``tools.gather_bench``, ``tools.micro``,
+``tools.caps``) default to ``cuda``, and there is no ``torch.compile``.
+``parallel`` runs the pass on a (dp, idx) grid of devices and across
+processes (``torch.distributed``), as the JAX package's ``parallel`` does
+in its default layout. The
 hand-written kernels live in ``kernels/*.cu`` and are built with ``nvcc``
 at first use (``kernels/build.py``): the per-read 9-mer SDP rescore
 (``rescore.cu``), the compare-count lookup (``cmpcount.cu``, wrapped by

@@ -163,7 +163,7 @@ def _launch(entry, wrapper, anc, n_anc, *extra):
         rc = getattr(lib, entry)(
             anc.data_ptr(), n_anc.data_ptr(), chains.data_ptr(),
             n_out.data_ptr(), pre.data_ptr(), ovf.data_ptr(), B, A2, *extra,
-            torch.cuda.current_stream(dev).cuda_stream)
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{entry} failed: CUDA error {rc}")
         wrapper.launches += 1

@@ -107,6 +107,26 @@ class LaneSet:
         self.n = len(ridx)
 
 
+class DeviceBatch:
+    """One batch after its device work, before the host finish: what the
+    finish reads. ``tensors`` maps a name to a rescore output on the device:
+    ``chains``, ``fb``, ``reason``, ``n`` and ``over`` of the main batch
+    and, where the M3 sub-batch ran, the same with ``_m3``."""
+
+    def __init__(self, results, todo, *, rl_arr=None, fallback=None,
+                 cause=None, nanc=None, m3_row=None, t=0.0):
+        self.results = results
+        self.todo = todo
+        self.rl_arr = rl_arr
+        self.fallback = fallback     # (B_pad,) reads for gold before rescore
+        self.cause = cause           # their first cause, 1-based in CAUSES
+        self.nanc = nanc             # anchors of each read's chosen stage
+        self.nanc_m3 = None          # the same for the M3 sub-batch rows
+        self.m3_row = m3_row or {}   # read row -> M3 sub-batch row
+        self.t = t                   # perf_counter at the rescore's start
+        self.tensors = {}
+
+
 class DeviceClassifier:
     def __init__(self, idx, opts: Options | None = None, device="cuda",
                  batch_size: int = 2048):
@@ -239,8 +259,9 @@ class DeviceClassifier:
         for g, (packed, info, NB) in zip(groups, outs):
             base = info[:, 0].astype(np.int64)
             acnt = info[:, 1]
-            # per-LANE pack overflow
-            bad = base + np.minimum(acnt, A_CAP) > 2 * NB
+            # per-LANE pack overflow, against the pack of the lane's shard
+            bad = base + np.minimum(acnt, A_CAP) > self._pack_cap_local(NB)
+            base = self._globalize_base(base, NB)
             base_all[g] = offset + base[: len(g)]
             acnt_all[g] = acnt[: len(g)]
             skip_all[g] = info[: len(g), 2].astype(bool)
@@ -268,7 +289,15 @@ class DeviceClassifier:
                                             self._t(cols), NB, iv_cap=iv_cap)
         return packed, info.cpu().numpy(), NB
 
-    # ---- device stages -----------------------------------------------------
+    def _pack_cap_local(self, NB):
+        # one device: the ladder pack spans the whole group
+        return 2 * NB
+
+    def _globalize_base(self, base, NB):
+        # one device: the ladder pack offsets are already global
+        return base
+
+    # ---- device stages (overridden by parallel.MeshClassifier) -------------
     def _k_bloom(self, strands, lens):
         return bloom_hit_kernel(strands, lens, self.dix.ekmer0,
                                 self.dix.ekmer1, self.idx.len_e_kmer,
@@ -286,10 +315,26 @@ class DeviceClassifier:
         return run_slow_ladder(*args, l_ek=self.idx.len_e_kmer, a_cap=A_CAP,
                                m_cap=M_CAP, pack_cap=2 * NB, iv_cap=iv_cap)
 
+    def _k_chain(self, packed, gidx, nanc):
+        return dc.chain_step(packed, self._t(gidx), self._t(nanc))
+
+    def _k_chain_m3(self, packed, gidx, nanc):
+        # the M3 sub-batch is small (M3 reads are rare): it runs on one
+        # device even on a mesh, as in the JAX classifier
+        return dc.m3_chain_step(packed, self._t(gidx), self._t(nanc))
+
+    def _k_prep(self, sel, chs3, ns3, pre3, anc3):
+        return dc.prep_rescore(self._t(sel), chs3, ns3, pre3, anc3)
+
     def _k_rescore(self, inp):
         dix = self.dix
         return drp.rescore(inp, self.ref_words, dix.ref_off, dix.ref_len_arr,
                            dix.n_bases)
+
+    def _k_rescore_m3(self, inp):
+        # the M3 sub-batch's rescore: one device even on a mesh, as in the
+        # JAX classifier
+        return self._k_rescore(inp)
 
     # ---- gather-map construction (vectorized) -----------------------------
     @staticmethod
@@ -462,6 +507,39 @@ class DeviceClassifier:
         return todo, islands
 
     def _device_phase(self, recs, prep=None):
+        """One batch's device work (``_device_step``) and the fetch of its
+        outputs to the host; returns the closure that runs the host finish
+        (gold fallbacks, filters, primary detection, StreamState) in input
+        order."""
+        step = self._device_step(recs, prep)
+        if not step.todo:
+            def _finish_empty():
+                self.n_classified += len(recs)
+                return step.results
+            return _finish_empty
+        h = {k: v.cpu().numpy() for k, v in step.tensors.items()}
+        self._lap("rescore", step.t)
+        results, todo, fallback = step.results, step.todo, step.fallback
+
+        def _finish():
+            """The host finish, read by read in input order."""
+            t_fin = time.perf_counter()
+            self.n_classified += len(recs)
+            for k, i in enumerate(todo):
+                out = self._finish_read(recs[i], results[i], k, step, h,
+                                        fallback[k])
+                if out is not None:
+                    results[i] = out
+            self._lap("finish", t_fin)
+            return results
+        return _finish
+
+    def _device_step(self, recs, prep=None) -> DeviceBatch:
+        """Everything of one batch up to the host finish: the island prep
+        (unless ``prep`` is given), the ladders, the M2 and M3 chaining and
+        the rescore of the main batch and of the M3 sub-batch. Returns a
+        ``DeviceBatch`` whose ``tensors`` are the rescore's outputs, still
+        on the device."""
         idx = self.idx
         dev = self.device
         l_ek = idx.len_e_kmer
@@ -471,10 +549,7 @@ class DeviceClassifier:
             prep = self._prep_batch(recs)
         todo, (bufs, seeds, s_off, s_cnt, s_tot) = prep
         if not todo:
-            def _finish_empty():
-                self.n_classified += len(recs)
-                return results
-            return _finish_empty
+            return DeviceBatch(results, todo)
         B = len(todo)
         rl_arr = np.array([len(recs[i].seq) for i in todo], np.int32)
         t = time.perf_counter()
@@ -554,7 +629,7 @@ class DeviceClassifier:
                         torch.zeros((B_pad, A2, 3), dtype=I32, device=dev))
                 return zero_set, np.zeros((B_pad,), np.int32), \
                     np.zeros((B_pad, 2), np.int32), np.zeros((B_pad,), bool)
-            out = dc.chain_step(packed, self._t(gidx), self._t(nanc))
+            out = self._k_chain(packed, gidx, nanc)
             info = out[5].cpu().numpy().copy()
             return out[:5], info[:, 0], info[:, 1:3], info[:, 3].astype(bool)
 
@@ -578,8 +653,8 @@ class DeviceClassifier:
             gpad[: len(rows)] = gw
             npad = np.zeros((Bm,), np.int32)
             npad[: len(rows)] = nw
-            chm, _nm, prem, _ovfm, anc3m, im = dc.m3_chain_step(
-                packed, self._t(gpad), self._t(npad))
+            chm, _nm, prem, _ovfm, anc3m, im = self._k_chain_m3(
+                packed, gpad, npad)
             infom = im.cpu().numpy()
             nm_h = infom[:, 0]
             ok = ~infom[: len(rows), 3].astype(bool)
@@ -707,19 +782,18 @@ class DeviceClassifier:
         ns3 = torch.stack([set_f[1], set_s0[1], set_s1[1]])
         pre3 = torch.stack([set_f[2], set_s0[2], set_s1[2]])
         anc3 = torch.stack([set_f[4], set_s0[4], set_s1[4]])
-        chains_rc, n_rc, anchors4, schash, n_hash, over = dc.prep_rescore(
-            self._t(sel_np), chs3, ns3, pre3, anc3)
+        chains_rc, n_rc, anchors4, schash, n_hash, over = self._k_prep(
+            sel_np, chs3, ns3, pre3, anc3)
         n_rc = torch.where(self._t(live_np), n_rc, 0)
         inp = dr.RescoreIn(
             chains=chains_rc, n_chains=n_rc, anchors=anchors4,
             schash=schash, n_hash=n_hash, codes_fr=codes_fr,
             buf_len=buf_len, read_len=self._t(rlen_np))
         chains_out, fb, reason, _iters = self._k_rescore(inp)
-        chains_h = chains_out.cpu().numpy()
-        fb_h = fb.cpu().numpy()
-        reason_h = reason.cpu().numpy()
-        n_h = n_rc.cpu().numpy()
-        over_h = over.cpu().numpy()
+        step = DeviceBatch(results, todo, rl_arr=rl_arr, fallback=fallback,
+                           cause=cause, nanc=nanc_final, m3_row=m3_row, t=t)
+        step.tensors.update(chains=chains_out, fb=fb, reason=reason,
+                            n=n_rc, over=over)
 
         # ---- M3 sub-batch prep + rescore (M3_A2-wide anchors) --------------
         if m3_final:
@@ -749,8 +823,8 @@ class DeviceClassifier:
                 return torch.stack([x, x, x])
 
             (chains_rcU, n_rcU, anchors4U, schashU, n_hashU,
-             overU) = dc.prep_rescore(
-                torch.zeros((Bmu,), dtype=I32, device=dev), three(chU),
+             overU) = self._k_prep(
+                np.zeros((Bmu,), np.int32), three(chU),
                 three(self._t(nU)), three(preU), three(ancU))
             liveU = np.zeros((Bmu,), bool)
             liveU[: len(m3_final)] = True
@@ -760,73 +834,59 @@ class DeviceClassifier:
                 chains=chains_rcU, n_chains=n_rcU, anchors=anchors4U,
                 schash=schashU, n_hash=n_hashU, codes_fr=codes_fr[ru],
                 buf_len=buf_len[ru], read_len=self._t(rlen_np[rowsU]))
-            chains_oU, fbU, reasonU, _iU = self._k_rescore(inpU)
-            chains_hU = chains_oU.cpu().numpy()
-            fb_hU = fbU.cpu().numpy()
-            reason_hU = reasonU.cpu().numpy()
-            n_hU = n_rcU.cpu().numpy()
-            over_hU = overU.cpu().numpy()
-        self._lap("rescore", t)
+            chains_oU, fbU, reasonU, _iU = self._k_rescore_m3(inpU)
+            step.nanc_m3 = nancU
+            step.tensors.update(chains_m3=chains_oU, fb_m3=fbU,
+                                reason_m3=reasonU, n_m3=n_rcU, over_m3=overU)
+        return step
 
-        # ---- host finish, in input order ----------------------------------
-        def _finish():
-            t_fin = time.perf_counter()
-            self.n_classified += len(recs)
+    # ---- host finish -------------------------------------------------------
+    def _finish_read(self, rec, res, k, step, h, to_gold):
+        """The finish of batch row ``k`` from the fetched outputs ``h``
+        (``step.tensors`` as numpy): the gold oracle's result for a read
+        handed to gold (returned), else ``res`` finished in place (None)."""
+        if k in step.m3_row:   # M3 sub-batch outputs for this read
+            u = step.m3_row[k]
+            ch_k, n_k, na_k = h["chains_m3"][u], h["n_m3"][u], step.nanc_m3[u]
+            fb_k, ov_k, rs_k = h["fb_m3"][u], h["over_m3"][u], \
+                h["reason_m3"][u]
+        else:
+            ch_k, n_k, na_k = h["chains"][k], h["n"][k], step.nanc[k]
+            fb_k, ov_k, rs_k = h["fb"][k], h["over"][k], h["reason"][k]
+        if to_gold or ov_k or (n_k > 0 and fb_k):
+            if to_gold:
+                self.cause_counts[CAUSES[step.cause[k] - 1]] += 1
+            elif ov_k:
+                self.cause_counts["rescore_chains"] += 1
+            else:
+                self.cause_counts["rescore"] += 1
+                for bit, name in enumerate(FB_NAMES):
+                    if (int(rs_k) >> bit) & 1:
+                        self.fb_bit_counts[name] += 1
+            g = self.gold
+            g.state = self.state
+            self.n_fallback += 1
+            return g.classify_read(rec.name, rec.seq, rec.qual)
 
-            def coord(v):
-                # kernel coordinates are uint32 bit patterns in int32
-                return int(v) & 0xFFFFFFFF
+        def coord(v):
+            # kernel coordinates are uint32 bit patterns in int32
+            return int(v) & 0xFFFFFFFF
 
-            for k, i in enumerate(todo):
-                res = results[i]
-                if k in m3_row:   # M3 sub-batch outputs for this read
-                    u = m3_row[k]
-                    ch_k, n_k = chains_hU[u], n_hU[u]
-                    fb_k, ov_k, rs_k = fb_hU[u], over_hU[u], reason_hU[u]
-                    na_k = nancU[u]
-                else:
-                    ch_k, n_k = chains_h[k], n_h[k]
-                    fb_k, ov_k, rs_k = fb_h[k], over_h[k], reason_h[k]
-                    na_k = nanc_final[k]
-                if fallback[k] or ov_k or (n_k > 0 and fb_k):
-                    if fallback[k]:
-                        self.cause_counts[CAUSES[cause[k] - 1]] += 1
-                    elif ov_k:
-                        self.cause_counts["rescore_chains"] += 1
-                    else:
-                        self.cause_counts["rescore"] += 1
-                        for bit, name in enumerate(FB_NAMES):
-                            if (int(rs_k) >> bit) & 1:
-                                self.fb_bit_counts[name] += 1
-                    g = self.gold
-                    g.state = self.state
-                    results[i] = g.classify_read(recs[i].name, recs[i].seq,
-                                                 recs[i].qual)
-                    self.n_fallback += 1
-                    continue
-                res.anchors = [None] * int(na_k)
-                chains = []
-                for ci in range(int(n_k)):
-                    row = ch_k[ci]
-                    chains.append(Chain(
-                        ref_id=int(row[dr.C_REF]), q_t_dis=0,
-                        sum_score=int(row[dr.C_SUM]),
-                        anchor_number=int(row[dr.C_ANUM]),
-                        direction=int(row[dr.C_DIR]), with_top_anchor=False,
-                        primary=0, pri_index=0, t_st=coord(row[dr.C_TST]),
-                        t_ed=coord(row[dr.C_TED]), q_st=coord(row[dr.C_QST]),
-                        q_ed=coord(row[dr.C_QED]), indel=int(row[dr.C_INDEL]),
-                        chain_id=ci, chain_anchor_cur=None))
-                res.chains = chains
-                rl = int(rl_arr[k])
-                if res.chains and post_finish_native(self.idx, res.chains,
-                                                     rl, self.state,
-                                                     self.opts):
-                    continue
-                if res.chains:
-                    post_rescore_finish(res.chains, rl, self.state, self.opts)
-                detect_primary(res.chains, rl)
-            self._lap("finish", t_fin)
-            return results
-
-        return _finish
+        res.anchors = [None] * int(na_k)
+        res.chains = [Chain(
+            ref_id=int(row[dr.C_REF]), q_t_dis=0,
+            sum_score=int(row[dr.C_SUM]),
+            anchor_number=int(row[dr.C_ANUM]), direction=int(row[dr.C_DIR]),
+            with_top_anchor=False, primary=0, pri_index=0,
+            t_st=coord(row[dr.C_TST]), t_ed=coord(row[dr.C_TED]),
+            q_st=coord(row[dr.C_QST]), q_ed=coord(row[dr.C_QED]),
+            indel=int(row[dr.C_INDEL]), chain_id=ci, chain_anchor_cur=None)
+            for ci, row in enumerate(ch_k[: int(n_k)])]
+        rl = int(step.rl_arr[k])
+        if res.chains and post_finish_native(self.idx, res.chains, rl,
+                                             self.state, self.opts):
+            return None
+        if res.chains:
+            post_rescore_finish(res.chains, rl, self.state, self.opts)
+        detect_primary(res.chains, rl)
+        return None

@@ -247,8 +247,9 @@ def ladder_outputs(t, pack_cap: int):
 
 def _launch(entry, args, kw, pack_cap, wrapper):
     """Launch ladder kernel ``entry`` of ``ladder_lib()`` on CUDA tensors
-    and count it in ``wrapper.launches``; returns (what the plain version
-    returns, the lanes' trips). A refused launch raises."""
+    of one card (``ladder_launch_args`` refuses any on another) and count it
+    in ``wrapper.launches``; returns (what the plain version returns, the
+    lanes' trips). A refused launch raises."""
     from ...kernels.build import LAUNCH_LOCK, ladder_lib
 
     lane_args = args[9]
@@ -261,7 +262,7 @@ def _launch(entry, args, kw, pack_cap, wrapper):
                            "kernel's struct")
     with LAUNCH_LOCK:
         rc = getattr(lib, entry)(
-            ctypes.addressof(largs),
+            ctypes.addressof(largs), lane_args.device.index,
             torch.cuda.current_stream(lane_args.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{entry} failed: CUDA error {rc}")

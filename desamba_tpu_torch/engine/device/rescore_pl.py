@@ -145,13 +145,16 @@ def rescore_cuda(prep):
         raise ValueError("rescore kernel: schash must be (B, 16, 3)")
     K = prep["rk_vals"].shape[2]
     nbytes = smem_bytes(A2, K)
+    dev = prep["scal"].device
     for k in ("scal", "chains", "anchors", "schash", "codes_pk", "rk_vals",
               "rk_pos", "ref_words", "ref_off", "ref_len"):
         t = prep[k]
         if t.device.type != "cuda" or t.dtype != I32 or not t.is_contiguous():
             raise ValueError(f"rescore kernel: {k} must be a contiguous "
                              f"int32 CUDA tensor")
-    dev = prep["scal"].device
+        if t.device != dev:
+            raise ValueError(f"rescore kernel: {k} is on {t.device}, the "
+                             f"batch on {dev}")
     chains_out = torch.empty((B, C_CAP, CF_N), dtype=I32, device=dev)
     flags = torch.empty((B, 3), dtype=I32, device=dev)
     lib = rescore_lib()
@@ -165,7 +168,7 @@ def rescore_cuda(prep):
             chains_out.data_ptr(), flags.data_ptr(),
             B, A2, prep["codes_pk"].shape[1], K,
             prep["ref_words"].shape[0] // LANES, prep["ref_off"].shape[0],
-            prep["n_bases"], prep["last_char"], nbytes,
+            prep["n_bases"], prep["last_char"], nbytes, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"rescore kernel launch failed: CUDA error "

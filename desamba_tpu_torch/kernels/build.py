@@ -12,6 +12,13 @@ bind a source once under one lock, and ``LAUNCH_LOCK`` makes each launch
 one critical section (a launcher may set its kernel's shared-memory limit
 before it launches, and another thread must not change that limit in
 between).
+
+Each library links the CUDA runtime statically (nvcc's default), so it
+keeps its own current device a thread, 0 at first, whatever PyTorch's is.
+The path's launchers (``rescore.cu``, ``ladder.cu``, ``chain.cu``) take
+the ordinal of their tensors' card and make it current before they set an
+attribute or launch; their wrappers pass it and refuse tensors on two
+cards.
 """
 from __future__ import annotations
 
@@ -118,7 +125,8 @@ def _bound(src, signatures):
 
 
 def rescore_lib():
-    return _bound("rescore.cu", {"rescore_launch": "p" * 12 + "i" * 9 + "p"})
+    # 12 pointers, nine sizes, the card's ordinal, stream
+    return _bound("rescore.cu", {"rescore_launch": "p" * 12 + "i" * 10 + "p"})
 
 
 def cmpcount_lib():
@@ -152,16 +160,16 @@ def caps_lib():
 
 
 def ladder_lib():
-    # a pointer to the LadderArgs block, stream; the struct's size; a
-    # block's shared memory at an SP_SET capacity
-    return _bound("ladder.cu", {"ladder_fast_launch": "pp",
-                                "ladder_slow_launch": "pp",
+    # a pointer to the LadderArgs block, the card's ordinal, stream; the
+    # struct's size; a block's shared memory at an SP_SET capacity
+    return _bound("ladder.cu", {"ladder_fast_launch": "pip",
+                                "ladder_slow_launch": "pip",
                                 "ladder_args_size": "",
                                 "ladder_smem_bytes": "i"})
 
 
 def chain_lib():
     # anc, n_anc, chains, n_out, pre, ovf, B, A2, (M3: its shared memory
-    # bytes and warps a block), stream
-    return _bound("chain.cu", {"chain_m2_launch": "p" * 6 + "ii" + "p",
-                               "chain_m3_launch": "p" * 6 + "iiii" + "p"})
+    # bytes and warps a block), the card's ordinal, stream
+    return _bound("chain.cu", {"chain_m2_launch": "p" * 6 + "iii" + "p",
+                               "chain_m3_launch": "p" * 6 + "iiiii" + "p"})

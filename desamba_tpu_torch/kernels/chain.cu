@@ -897,14 +897,19 @@ extern "C" int m3_smem_bytes(int A2) { return m3_words(A2) * 4; }
 #ifdef __CUDACC__
 constexpr int CHAIN_SMEM_MAX = 232448;
 constexpr int SMEM_DEFAULT = 48 * 1024;   // more needs the opt-in
+constexpr int MAX_DEVICES = 64;           // the cards a launcher takes
 
-// Launch on `stream`; return the CUDA error code of the launch (0 =
-// launched).
+// Launch on `stream` of card `device`, the card of every pointer: this
+// library's current device is made `device` first, since a launch (and the
+// shared-memory opt-in) goes to the current one. Return the CUDA error code
+// of the launch (0 = launched).
 extern "C" int chain_m2_launch(const int* anc, const int* n_anc, int* chains,
                                int* n_out, int* pre, unsigned char* ovf, int B,
-                               int A2, void* stream) {
+                               int A2, int device, void* stream) {
   if (B <= 0) return 0;
   if (A2 <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
   chain_kernel<<<(B + CHAIN_WARPS - 1) / CHAIN_WARPS, CHAIN_WARPS * 32,
                  CHAIN_WARPS * M2_STAGE * sizeof(int),
                  (cudaStream_t)stream>>>(anc, n_anc, chains, n_out, pre, ovf,
@@ -915,16 +920,16 @@ extern "C" int chain_m2_launch(const int* anc, const int* n_anc, int* chains,
 template <int W>
 static int m3_launch(const int* anc, const int* n_anc, int* chains,
                      int* n_out, int* pre, unsigned char* ovf, int B, int A2,
-                     int smem_bytes, cudaStream_t stream) {
-  // the opt-in, once a size: not at all up to 48 KB (A2 <= 512), so a
-  // launch can be captured in a CUDA graph
-  static int opted = SMEM_DEFAULT;
-  if (smem_bytes > opted) {
+                     int smem_bytes, int device, cudaStream_t stream) {
+  // the opt-in, once a size and card (the attribute is a card's): not at
+  // all up to 48 KB (A2 <= 512), so a launch can be captured in a CUDA graph
+  static int opted[MAX_DEVICES];
+  if (smem_bytes > SMEM_DEFAULT && smem_bytes > opted[device]) {
     const cudaError_t e = cudaFuncSetAttribute(
         m3_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    opted = smem_bytes;
+    opted[device] = smem_bytes;
   }
   m3_kernel<W><<<B, W * 32, smem_bytes, stream>>>(anc, n_anc, chains, n_out,
                                                   pre, ovf, A2);
@@ -934,18 +939,20 @@ static int m3_launch(const int* anc, const int* n_anc, int* chains,
 // warps: the block's warps, 4 or 8
 extern "C" int chain_m3_launch(const int* anc, const int* n_anc, int* chains,
                                int* n_out, int* pre, unsigned char* ovf, int B,
-                               int A2, int smem_bytes, int warps,
+                               int A2, int smem_bytes, int warps, int device,
                                void* stream) {
   if (B <= 0) return 0;
   if (A2 < chn::C2 || A2 > M3_MAX_A2 || smem_bytes != m3_smem_bytes(A2) ||
-      smem_bytes > CHAIN_SMEM_MAX)
+      smem_bytes > CHAIN_SMEM_MAX || device < 0 || device >= MAX_DEVICES)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
   if (warps == 8)
     return m3_launch<8>(anc, n_anc, chains, n_out, pre, ovf, B, A2,
-                        smem_bytes, (cudaStream_t)stream);
+                        smem_bytes, device, (cudaStream_t)stream);
   if (warps == 4)
     return m3_launch<4>(anc, n_anc, chains, n_out, pre, ovf, B, A2,
-                        smem_bytes, (cudaStream_t)stream);
+                        smem_bytes, device, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 #endif

@@ -252,24 +252,30 @@ static int ladder_smem_opt_in(const void* kernel, const lad::LadderArgs* a,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
-// One warp a lane, LADDER_WARPS a block, on `stream`. Return the CUDA error
-// code of the launch (0 = launched).
-extern "C" int ladder_fast_launch(const lad::LadderArgs* a,
+// One warp a lane, LADDER_WARPS a block, on `stream` of card `device` (the
+// card of every pointer in `a`): this library's current device is made
+// `device` first, since the attribute and the launch go to the current one.
+// Return the CUDA error code of the launch (0 = launched).
+extern "C" int ladder_fast_launch(const lad::LadderArgs* a, int device,
                                   cudaStream_t stream) {
   if (a->nb <= 0) return 0;
   int smem = 0;
-  const int e = ladder_smem_opt_in((const void*)fast_ladder_kernel, a, &smem);
+  int e = (int)cudaSetDevice(device);
+  if (e != 0) return e;
+  e = ladder_smem_opt_in((const void*)fast_ladder_kernel, a, &smem);
   if (e != 0) return e;
   fast_ladder_kernel<<<(a->nb + LADDER_WARPS - 1) / LADDER_WARPS,
                        LADDER_THREADS, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ladder_slow_launch(const lad::LadderArgs* a,
+extern "C" int ladder_slow_launch(const lad::LadderArgs* a, int device,
                                   cudaStream_t stream) {
   if (a->nb <= 0) return 0;
   int smem = 0;
-  const int e = ladder_smem_opt_in((const void*)slow_ladder_kernel, a, &smem);
+  int e = (int)cudaSetDevice(device);
+  if (e != 0) return e;
+  e = ladder_smem_opt_in((const void*)slow_ladder_kernel, a, &smem);
   if (e != 0) return e;
   slow_ladder_kernel<<<(a->nb + LADDER_WARPS - 1) / LADDER_WARPS,
                        LADDER_THREADS, smem, stream>>>(*a);

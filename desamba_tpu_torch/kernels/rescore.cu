@@ -833,7 +833,8 @@ extern "C" int rescore_launch(
     const unsigned* codes_pk, const int* rk_vals, const int* rk_pos,
     const unsigned* ref_words, const int* ref_off, const int* ref_len,
     int* chains_out, int* flags, int B, int A2, int nw, int K, int NR,
-    int nref, int n_bases, int last_char, int smem_bytes, void* stream) {
+    int nref, int n_bases, int last_char, int smem_bytes, int device,
+    void* stream) {
   Params P{scal, chains, anchors, schash, codes_pk, rk_vals, rk_pos,
            ref_words, ref_off, ref_len, chains_out, flags,
            B, A2, nw, K, NR, nref, n_bases, last_char};
@@ -841,7 +842,11 @@ extern "C" int rescore_launch(
   if (A2 <= 0 || K <= 0 || NR < 2 || smem_bytes > SMEM_MAX ||
       smem_bytes != rescore_smem_bytes(A2, K))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
+  // the card of every pointer: the attribute and the launch go to this
+  // library's current device
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(
       rescore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   rescore_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem_bytes,
