@@ -55,6 +55,22 @@ and a C compiler. Phases:
    ``destroy_process_group``; then ``entry()``'s step on the first batch
    three times, timed by CUDA events, its tensors bit-equal to those of
    phase 3's first device phase;
+3e. ``MeshClassifier(shard_full=True)``, every gather table cut by row
+   range over idx, at (1, 4) and (2, 2) over phase 3's first batch, on
+   distinct cards where there are enough, else ``cuda:0`` repeated (the
+   run prints which): no shard as large as its table; the SAM byte-equal
+   to phase 3's first 2,048 records at (1, 4), and at (2, 2) to phase 3d's
+   default-layout mesh, with its ``fallback_stats()``; the counts zeroed
+   just before and read just after: the sharded B2, B3 and K1 launched
+   once a dp row for each call of their stage, no flat ladder, the flat K1
+   only on the M3 sub-batch, no eager ladder; every captured call of the
+   sharded kernels bit-equal to the flat kernel on the whole tables of
+   ``cuda:0``, the first of each kind also to its plain version (the eager
+   ladder on the shards; K1's plain version reading them from the host),
+   the launch alone timed beside the flat kernel's (K1: the wrapper),
+   with the sharded kernels' ``ptxas`` lines and the walls beside phase
+   3d's; the kernels line gains the three sharded instantiations, from
+   the (1, 4) run;
 4. long reads: a new DeviceClassifier over one batch of 64 reads, the
    first 62 of phase 3's and two of at least 250 kb (a chimera of whole
    references end to end, and a span of one reference inside random
@@ -621,8 +637,10 @@ def main():
     from desamba_tpu_torch.io import native
     from desamba_tpu_torch.io.sam import format_result
     from desamba_tpu_torch.kernels import build
+    from desamba_tpu_torch.engine.device import rescore as dr
     from desamba_tpu_torch.parallel import (MeshClassifier, distributed,
-                                            make_mesh)
+                                            make_mesh, sharded)
+    from desamba_tpu_torch.parallel import classifier as mesh_clf
     from desamba_tpu_torch.tools import caps, micro
     from desamba_tpu_torch.tools import multihost_worker as mhw
     from desamba_tpu_torch.tools import gather_bench as gb
@@ -692,10 +710,14 @@ def main():
     eager = {"fast_ladder": ladder.fast_ladder,
              "slow_ladder": ladder.slow_ladder,
              "chain": dc.chain_kernel, "m3_chain": dc.m3_kernel}
+    # the instantiations over tables cut by row range over idx (phase 3e)
+    sharded_kernels = {"fast_ladder": ladder.fast_ladder_sharded_cuda,
+                       "slow_ladder": ladder.slow_ladder_sharded_cuda,
+                       "rescore": trp.rescore_sharded_cuda}
     failures = []
 
     def zero_counts():
-        for k in kernels.values():
+        for k in [*kernels.values(), *sharded_kernels.values()]:
             k.launches = 0
         for f in eager.values():
             f.runs = 0
@@ -960,7 +982,8 @@ def main():
     def mesh_run(clf, what):
         """``clf`` over phase 3's first batch with a fresh state, the
         kernels' counts zeroed just before and read just after; returns
-        (wall s, launches, calls of each sharded stage, SAM equal)."""
+        (wall s, launches, calls of each sharded stage, SAM equal, the
+        sharded instantiations' launches, the SAM)."""
         calls = collections.Counter()
 
         def counted(name):
@@ -984,10 +1007,12 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {n: k.launches for n, k in kernels.items()}
+        sh_counts = {n: k.launches for n, k in sharded_kernels.items()}
         runs = {n: f.runs for n, f in eager.items()}
         log(f"{what}: {len(first_reads)} reads in {wall:.3f} s; launches "
-            f"{json.dumps(counts)}; stage calls {json.dumps(calls)}; eager "
-            f"runs {json.dumps(runs)}; fallback by cause "
+            f"{json.dumps(counts)}; sharded instantiations' launches "
+            f"{json.dumps(sh_counts)}; stage calls {json.dumps(calls)}; "
+            f"eager runs {json.dumps(runs)}; fallback by cause "
             f"{json.dumps(clf.fallback_stats()['by_cause'])}")
         for name, n in runs.items():
             if n:
@@ -995,15 +1020,15 @@ def main():
         if got != sam_first:
             failures.append(f"{what}: SAM differs from phase 3's first "
                             f"{len(first_reads)} records")
-        return wall, counts, calls, got == sam_first
+        return wall, counts, calls, got == sam_first, sh_counts, got
 
-    single_wall, single_counts, _, _ = mesh_run(
+    single_wall, single_counts, *_ = mesh_run(
         DeviceClassifier(idx, opts, "cuda"), "single device, batch 1")
 
     def check_mesh(mesh, what):
         n_dp = mesh.shape["dp"]
         clf = MeshClassifier(idx, opts, mesh=mesh)
-        wall, counts, calls, same = mesh_run(clf, what)
+        wall, counts, calls, same, _, sam = mesh_run(clf, what)
         # each sharded stage launches its kernel once a dp row; the M3
         # sub-batch runs on one device
         want = {"fast_ladder": n_dp * calls["_k_ladder fast"],
@@ -1027,10 +1052,11 @@ def main():
         log(f"{what}: mesh {wall:.3f} s against one device's "
             f"{single_wall:.3f} s on {card}; SAM "
             + ("byte-equal to phase 3's" if same else "DIFFERS"))
-        return counts
+        return dict(wall=wall, sam=sam, stats=clf.fallback_stats())
 
-    check_mesh(make_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4),
-               "mesh (2, 2) of cuda:0")
+    mesh22 = check_mesh(
+        make_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4),
+        "mesh (2, 2) of cuda:0")
     if torch.cuda.device_count() >= 2:
         check_mesh(make_mesh(2, 1), "mesh (2, 1) of cuda:0, cuda:1")
     else:
@@ -1080,6 +1106,262 @@ def main():
         failures.append("entry: the step's tensors differ from phase 3's "
                         "batch 1")
     del step_out, step, step_args
+
+    # ---- 3e. shard_full: every gather table cut by row range over idx ------
+    ladder_lib = build.ladder_lib()
+    d0 = dev.dix.fm_blocks.device       # cuda:0, its index filled in
+
+    def ladder_launch_ms(which, a, kw, device):
+        """The ladder kernel's launch alone (whole or sharded tables, by
+        ``a``) on arguments and outputs made once, by CUDA events."""
+        largs, held = ladder.ladder_launch_args(
+            *a, **{k: v for k, v in kw.items() if k != "pack_cap"})
+        tag = ("_sharded" if isinstance(largs, ladder.ShardedLadderArgs)
+               else "")
+        entry_fn = getattr(ladder_lib, f"ladder_{which}{tag}_launch")
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+        def launch():
+            rc = entry_fn(ctypes.addressof(largs), device.index, stream)
+            if rc:
+                raise RuntimeError(f"ladder_{which}{tag}_launch: CUDA error "
+                                   f"{rc}")
+
+        with torch.cuda.device(device):
+            ms = cuda_ms(launch, 5)
+            torch.cuda.synchronize(device)
+        del held
+        return ms
+
+    def ladder_diff(x, y):
+        return max(int((x[0].long() - y[0].long().to(x[0].device))
+                       .abs().max()),
+                   int((x[1].long() - y[1].long().to(x[1].device))
+                       .abs().max()), int(x[2] != y[2]))
+
+    def sharded_ladder(which, a, kw, what, plain_too):
+        """One captured call of the sharded B2 (B3): bit-equal to the flat
+        kernel on the whole tables of cuda:0 and (``plain_too``) to the
+        eager ladder on the shards; both launches alone timed."""
+        dd = a[9].device
+        sh_fn = sharded_kernels[f"{which}_ladder"]
+        flat_args = (dev.ixr, dev.dix.fm_blocks, dev.dix.rank,
+                     dev.dix.hash13, *(x.to(d0) for x in a[4:7]),
+                     dev.dix.q_mem, dev.dix.q_lv, a[9].to(d0))
+        with torch.cuda.device(dd):
+            got = sh_fn(*a, **kw)
+            torch.cuda.synchronize(dd)
+        trips = sh_fn.trips.cpu().numpy()
+        exp = kernels[f"{which}_ladder"](*flat_args, **kw)
+        torch.cuda.synchronize()
+        err = ladder_diff(got, exp)
+        plain_ms, err_p = None, None
+        if plain_too:
+            e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            with torch.cuda.device(dd):
+                e0.record()
+                pl = eager[f"{which}_ladder"](*a, **kw)
+                e1.record()
+                torch.cuda.synchronize(dd)
+            plain_ms = e0.elapsed_time(e1)
+            err_p = ladder_diff(got, pl)
+        ms = ladder_launch_ms(which, a, kw, dd)
+        flat_ms = ladder_launch_ms(which, flat_args, kw, d0)
+        info = got[1].cpu().numpy()
+        nbytes = ladder_bytes(a[9].cpu().numpy(), trips, info,
+                              idx.len_e_kmer, A_CAP, kw["pack_cap"])
+        lanes = int((a[9][7] != 0).sum())
+        log(f"{what}: sharded {which} ladder on {dd}, {lanes} lanes, NB "
+            f"{a[9].shape[1]}: the launch alone {ms:.4f} ms, the flat "
+            f"kernel's on cuda:0 {flat_ms:.4f} ms (by events); longest lane "
+            f"{int(trips.max())} trips; max_abs_err against the flat kernel "
+            f"{err}" + ("" if not plain_too else
+                        f", against the eager ladder on the shards {err_p} "
+                        f"({plain_ms:.1f} ms)"))
+        if err or err_p:
+            failures.append(f"{what}: sharded {which} ladder differs (flat "
+                            f"{err}, plain {err_p})")
+        return dict(ms=ms, flat_ms=flat_ms, plain_ms=plain_ms,
+                    err=max(err, err_p or 0), nbytes=nbytes)
+
+    def sharded_rescore(a, what, plain_too):
+        """One captured call of the sharded K1: bit-equal to the flat kernel
+        on cuda:0's whole reference words and (``plain_too``, every row)
+        to the plain version reading the shards; both timed."""
+        inp, words, ref_off, ref_len, n_bases = a
+        dd = inp.n_chains.device
+        prep = trp.prepare(inp, words, ref_off, ref_len, n_bases)
+        prep0 = trp.prepare(dr.RescoreIn(*(x.to(d0) for x in inp)),
+                            dev.ref_words, dev.dix.ref_off,
+                            dev.dix.ref_len_arr, dev.dix.n_bases)
+        with torch.cuda.device(dd):
+            ch_s, fl_s = trp.rescore_sharded_cuda(prep)
+            torch.cuda.synchronize(dd)
+            ms = cuda_ms(lambda: trp.rescore_sharded_cuda(prep), 5)
+        ch_f, fl_f = trp.rescore_cuda(prep0)
+        flat_ms = cuda_ms(lambda: trp.rescore_cuda(prep0), 5)
+        ck, fk = ch_s.cpu().long(), fl_s.cpu().long()
+        err = max(int((ck - ch_f.cpu().long()).abs().max()),
+                  int((fk - fl_f.cpu().long()).abs().max()))
+        out = dict(ms=ms, flat_ms=flat_ms, plain_ms=None, err=err, bnd=None)
+        msg = ""
+        if plain_too:
+            host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                    for k, v in prep.items() if k != "ref_words"}
+            rows = np.flatnonzero(host["scal"][:, 0] > 0)
+            touched = Touched(words.cpu())
+            t0 = time.perf_counter()
+            ch_p, fl_p = trp.rescore_plain(dict(prep, ref_words=touched),
+                                           rows)
+            out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            err_p = max(int((ck - ch_p.long()).abs().max()),
+                        int((fk - fl_p.long()).abs().max()))
+            out["err"] = max(err, err_p)
+            out["bnd"] = bound(rescore_bytes(host, rows, touched.spans),
+                               int(fk[:, 2].sum()))
+            msg = (f"; against the plain version on the shards (every row, "
+                   f"{len(rows)} with chains) {err_p}, plain "
+                   f"{out['plain_ms']:.1f} ms; bound {out['bnd'][0]:.6f} ms "
+                   f"({out['bnd'][1]})")
+        log(f"{what}: sharded K1 on {dd}, {prep['scal'].shape[0]} rows: "
+            f"{ms:.4f} ms, the flat kernel on cuda:0 {flat_ms:.4f} ms (the "
+            f"wrapper, by events); max_abs_err against the flat kernel "
+            f"{err}{msg}")
+        if out["err"]:
+            failures.append(f"{what}: sharded K1 differs: {out['err']}")
+        return out
+
+    def shard_full_run(shape, what, ref_sam, ref_stats):
+        """MeshClassifier(shard_full=True) at ``shape`` over phase 3's
+        first batch (distinct cards where there are enough, else cuda:0
+        repeated), its SAM against ``ref_sam`` (and ``fallback_stats()``
+        against ``ref_stats``), its shards against their tables, its
+        launches (counts zeroed just before, read just after), and every
+        captured call of the sharded kernels against the flat ones (the
+        first of each kind also against its plain version). Returns the
+        calls' checks and the run's launches."""
+        need = shape[0] * shape[1]
+        distinct = torch.cuda.device_count() >= need
+        devices = [torch.device("cuda", k if distinct else 0)
+                   for k in range(need)]
+        log(f"{what}: on " + (f"{need} distinct cards" if distinct else
+                              f"cuda:0 repeated {need} times (one card)"))
+        clf = MeshClassifier(idx, opts, mesh=make_mesh(*shape,
+                                                       devices=devices),
+                             shard_full=True)
+        for name in sorted(sharded.SHARDED_DIX_FIELDS) + ["ref_words"]:
+            whole = (clf.ref_words if name == "ref_words"
+                     else getattr(clf.dix, name)).numel()
+            for _, t, _, words in clf._rows:
+                a = words if name == "ref_words" else getattr(t, name)
+                big = max(x.numel() for x in a.shards)
+                if big >= whole:
+                    failures.append(f"{what}: a shard of {name} holds {big} "
+                                    f"of its table's {whole} elements")
+        calls = {"fast": [], "slow": [], "rescore": []}
+        orig = {"fast": mesh_clf.run_fast_ladder,
+                "slow": mesh_clf.run_slow_ladder, "rescore": trp.rescore}
+
+        def capture(which):
+            def run(*a, **kw):
+                if which != "rescore" or not torch.is_tensor(a[1]):
+                    calls[which].append((a, kw))
+                return orig[which](*a, **kw)
+            return run
+
+        mesh_clf.run_fast_ladder = capture("fast")
+        mesh_clf.run_slow_ladder = capture("slow")
+        trp.rescore = capture("rescore")
+        try:
+            wall, counts, stage, _, sh_counts, sam = mesh_run(clf, what)
+        finally:
+            mesh_clf.run_fast_ladder = orig["fast"]
+            mesh_clf.run_slow_ladder = orig["slow"]
+            trp.rescore = orig["rescore"]
+        n_dp = shape[0]
+        want = {"fast_ladder": n_dp * stage["_k_ladder fast"],
+                "slow_ladder": n_dp * stage["_k_ladder slow"],
+                "rescore": n_dp * stage["_k_rescore"]}
+        for name, n in want.items():
+            if sh_counts[name] != n:
+                failures.append(f"{what}: sharded {name} launched "
+                                f"{sh_counts[name]} times, not {n}")
+        if min(sh_counts["fast_ladder"], sh_counts["rescore"]) <= 0 or (
+                single_counts["slow_ladder"] > 0
+                and sh_counts["slow_ladder"] <= 0):
+            failures.append(f"{what}: a sharded kernel was not launched")
+        if counts["fast_ladder"] or counts["slow_ladder"] or (
+                counts["rescore"] != stage["_k_rescore_m3"]):
+            failures.append(f"{what}: a flat ladder or main-batch K1 ran: "
+                            f"{json.dumps(counts)}")
+        if sam != ref_sam:
+            failures.append(f"{what}: SAM differs from the reference")
+        stats = clf.fallback_stats()
+        if ref_stats is not None and stats != ref_stats:
+            failures.append(f"{what}: fallback_stats() {json.dumps(stats)} "
+                            f"differ from {json.dumps(ref_stats)}")
+        log(f"{what}: SAM " + ("byte-equal" if sam == ref_sam else "DIFFERS")
+            + f"; shard_full {wall:.3f} s against the (2, 2) default "
+            f"layout's {mesh22['wall']:.3f} s and one device's "
+            f"{single_wall:.3f} s on {card}")
+        checked = {"fast": [], "slow": [], "rescore": []}
+        for stage, got in calls.items():
+            for i, (a, kw) in enumerate(got):
+                tag = f"{what} call {i + 1}"
+                first = i == 0 and not plain_done[stage]
+                if stage == "rescore":
+                    checked[stage].append(sharded_rescore(a, tag, first))
+                else:
+                    checked[stage].append(sharded_ladder(stage, a, kw, tag,
+                                                         first))
+                plain_done[stage] |= first
+        del clf, calls
+        return checked, sh_counts
+
+    plain_done = {"fast": False, "slow": False, "rescore": False}
+    sh14, sh14_counts = shard_full_run((1, 4), "shard_full (1, 4)",
+                                       sam_first, None)
+    shard_full_run((2, 2), "shard_full (2, 2)", mesh22["sam"],
+                   mesh22["stats"])
+    sh_ptxas = {
+        "fast_ladder": ptxas_lines(built["ladder.cu"],
+                                   "fast_ladder_sharded_kernel"),
+        "slow_ladder": ptxas_lines(built["ladder.cu"],
+                                   "slow_ladder_sharded_kernel"),
+        "rescore": ptxas_lines(built["rescore.cu"], "rescore_sharded_kernel")}
+    sharded_records = []
+    for stage, name, src, line in (
+            ("fast", "fast_ladder", "ladder.cu", "parallel/classifier.py:161"),
+            ("slow", "slow_ladder", "ladder.cu", "parallel/classifier.py:161"),
+            ("rescore", "rescore", "rescore.cu",
+             "parallel/classifier.py:246")):
+        got = sh14[stage]
+        if not got:
+            failures.append(f"shard_full (1, 4): no {stage} call captured")
+            continue
+        if stage == "rescore":
+            ms, flat_ms, bnd = got[0]["ms"], got[0]["flat_ms"], got[0]["bnd"]
+        else:
+            ms = sum(r["ms"] for r in got)
+            flat_ms = sum(r["flat_ms"] for r in got)
+            bnd = bound(sum(r["nbytes"] for r in got), 0)
+        log(f"sharded {name} at (1, 4), "
+            + ("the first call" if stage == "rescore" else
+               f"{len(got)} calls") + f": {ms:.4f} ms against the flat "
+            f"kernel's {flat_ms:.4f} ms on {card}; bound {bnd[0]:.6f} ms "
+            f"({bnd[1]}); ptxas {sh_ptxas[name]}")
+        if ms < bnd[0]:
+            failures.append(f"sharded {name} beat its bound: {ms} < {bnd[0]}")
+        sharded_records.append({
+            "name": f"{name}_sharded", "route": "cuda",
+            "source": f"desamba_tpu_torch/kernels/{src}",
+            "replaces": f"desamba_tpu/{line}",
+            "launches": sh14_counts[name],
+            "max_abs_err": max(r["err"] for r in got),
+            "ms": ms, "flat_ms": flat_ms, "plain_ms": got[0]["plain_ms"],
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "library_eager_ms": None})
+    del sh14
 
     def check_k1(what, clf, captured):
         """K1 on each captured batch of ``clf``'s run against its plain
@@ -1198,22 +1480,8 @@ def main():
         wrap_ms = cuda_ms(lambda: kernel(*args, **kw), 5)
         # the launch alone, on arguments and outputs made once (the wrapper
         # also packs the read codes, zeroes the anchor rows and packs them)
-        largs, held = ladder.ladder_launch_args(
-            *args, **{k: v for k, v in kw.items() if k != "pack_cap"})
-        entry = getattr(ladder_lib, f"ladder_{which}_launch")
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def launch():
-            rc = entry(ctypes.addressof(largs), args[9].device.index, stream)
-            if rc:
-                raise RuntimeError(f"ladder_{which}_launch: CUDA error {rc}")
-
-        ms = cuda_ms(launch, 5)
-        torch.cuda.synchronize()
-        del held
-        err = max(int((got[0].long() - exp[0].long()).abs().max()),
-                  int((got[1].long() - exp[1].long()).abs().max()),
-                  int(got[2] != exp[2]))
+        ms = ladder_launch_ms(which, args, kw, args[9].device)
+        err = ladder_diff(got, exp)
         info = exp[1].cpu().numpy()
         nbytes = ladder_bytes(lane_args.cpu().numpy(), trips, info,
                               idx.len_e_kmer, A_CAP, 2 * NB)
@@ -1247,8 +1515,6 @@ def main():
                             f"{min(ms, wrap_ms)} < {bnd[0]} ms")
         return dict(ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, err=err,
                     nbytes=nbytes, ovf=int(info[:, 3].sum()))
-
-    ladder_lib = build.ladder_lib()
 
     for which, name, line, ptxas in (
             ("fast", "fast_ladder", 98, b2_ptxas),
@@ -1653,15 +1919,16 @@ def main():
               if r["library_ms"] is not None and r["ms"] > r["library_ms"]]
     log("kernels slower than their library call in a graph: "
         + (", ".join(slower) or "none"))
-    if len(records) != 28:
-        failures.append(f"{len(records)} kernel records, not 28")
+    records += sharded_records
+    if len(records) != 31:
+        failures.append(f"{len(records)} kernel records, not 31")
     log(json.dumps({"kernels": records}))
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
         raise SystemExit(1)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

@@ -25,8 +25,23 @@ and arrive together. The fixture runs at the first test of each process
 that runs tests, so the test processes themselves have imported jax by then
 (``tests/conftest.py``'s ``pytest_configure``) and keep their cache, and
 the pytest-xdist controller does not hand the setting to its workers.
+
+A third fault is at the end of a run. When every worker has reported its
+session finished, the controller closes their gateways, and execnet sends a
+worker SIGINT if it is still running 5 s later (execnet's
+``_terminate_execution``). After that report a worker still runs pytest's
+cleanup, which calls ``gc.collect()`` five times (the unraisable-exception
+plugin); each walks every live object and runs JAX's ``_xla_gc_callback``,
+and a worker that has run many of these files holds millions of objects
+(1-3 s for the five on a worker of only three files). The SIGINT then lands
+inside a collection ("Exception ignored in: <function _xla_gc_callback>
+... KeyboardInterrupt") or in the cleanup itself, whose traceback ends the
+worker. ``pytest_sessionfinish`` below runs before the report: it collects
+once and freezes what survives (``gc.freeze``), so the cleanup's
+collections skip the frozen objects and end within the window.
 """
 import fcntl
+import gc
 import os
 import tempfile
 
@@ -54,3 +69,11 @@ def pytest_configure(config):
 def no_persistent_jax_cache_in_started_processes():
     os.environ["JAX_ENABLE_COMPILATION_CACHE"] = "false"
     yield
+
+
+def pytest_sessionfinish(session):
+    """Collect once and freeze the survivors before an xdist worker reports
+    its session finished (the module docstring): the collections of
+    pytest's cleanup then skip them."""
+    gc.collect()
+    gc.freeze()

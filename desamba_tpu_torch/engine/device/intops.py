@@ -43,13 +43,20 @@ def _norm(idx, n):
 
 def take(t, idx):
     """``t[idx]`` along dim 0 with JAX gather semantics: negative indices
-    wrap once, then every index clamps into range."""
+    wrap once, then every index clamps into range. A table cut into shards
+    (``parallel.sharded``) answers with its own ``__getitem__``, as the JAX
+    package's sharded gather does: 0 outside ``[0, n)``."""
+    if not torch.is_tensor(t):
+        return t[idx]
     n = t.shape[0]
     return t[_norm(idx, n).clamp(0, n - 1)]
 
 
 def take2(t, i, j):
-    """``t[i, j]`` with JAX gather semantics on both leading dims."""
+    """``t[i, j]`` with JAX gather semantics on both leading dims (a
+    sharded table: its own ``__getitem__``, as ``take``)."""
+    if not torch.is_tensor(t):
+        return t[i, j]
     ni, nj = t.shape[0], t.shape[1]
     return t[_norm(i, ni).clamp(0, ni - 1), _norm(j, nj).clamp(0, nj - 1)]
 

@@ -15,13 +15,19 @@ Each ladder is also a hand-written CUDA kernel in ``kernels/ladder.cu``
 (one warp runs one lane's whole ladder): ``run_fast_ladder`` and
 ``run_slow_ladder`` launch them for CUDA tensors (``fast_ladder_cuda``,
 ``slow_ladder_cuda``) and run the eager ``fast_ladder`` and
-``slow_ladder``, their plain versions, only for CPU tensors.
+``slow_ladder``, their plain versions, only for CPU tensors. Where the
+gather tables are cut by row range over a mesh's ``idx`` axis
+(``parallel/sharded.py``), they launch the kernels' sharded instantiations
+(``fast_ladder_sharded_cuda``, ``slow_ladder_sharded_cuda``), and the
+eager ladders run on the sharded tables as they are.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from ...kernels.build import ShardTab
 
 from ...constants import (
     MEM_SEARCH_FAST,
@@ -174,11 +180,38 @@ _ARG_INTS = (
     "m_cap")
 
 
+# the gather tables: ShardTab accessors in ShardedLadderArgs (the JAX
+# package's sharded tables that the ladders read)
+_ARG_TABLES = (
+    "fm_blocks", "hash13", "row_pos", "isa", "text_pk", "sep_any",
+    "sep_hash", "samp_bits", "uni_start", "uni_len", "uni_ref_list",
+    "rp_global_off", "rp_ref_id", "ref_pk", "pos2uni")
+
+
 class LadderArgs(ctypes.Structure):
     """The kernel's argument block: ~30 device pointers (``c_void_p``, never
     a default ctypes int, which would cut them to 32 bits) and the sizes."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _ARG_PTRS]
                 + [(n, ctypes.c_int) for n in _ARG_INTS])
+
+
+class ShardedLadderArgs(ctypes.Structure):
+    """The sharded kernels' argument block: LadderArgs with a ShardTab (its
+    shard pointers by value, the shard length and count) for each table of
+    ``_ARG_TABLES``."""
+    _fields_ = ([(n, ShardTab if n in _ARG_TABLES else ctypes.c_void_p)
+                 for n in _ARG_PTRS]
+                + [(n, ctypes.c_int) for n in _ARG_INTS])
+
+
+def _sharded_tables(t) -> bool:
+    """Whether the gather tables of ``t`` (name -> table) are cut into
+    shards; a mix of the two layouts raises."""
+    whole = [torch.is_tensor(t[n]) for n in _ARG_TABLES]
+    if any(whole) and not all(whole):
+        raise ValueError("ladder kernel: the gather tables must be all whole "
+                         "or all sharded")
+    return not whole[0]
 
 
 def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
@@ -189,7 +222,10 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
     outputs and scratch allocated: (args, tensors). ``tensors`` holds every
     tensor the pointers name (keep it alive until the kernel has run).
     ``m_cap`` is the slow ladder's (the fast kernel does not read it).
-    Raises ValueError on an input the kernels do not take."""
+    Gather tables cut into shards (``parallel.sharded``) give a
+    ShardedLadderArgs: their shards lie on the devices of the mesh's idx
+    axis, the rest on the lanes' device. Raises ValueError on an input the
+    kernels do not take."""
     cap = IV_CAP if iv_cap is None else iv_cap
     NB = lane_args.shape[1]
     dev = lane_args.device
@@ -209,11 +245,14 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
         iv_ovf=torch.empty((NB,), dtype=I32, device=dev),
         trips=torch.empty((NB,), dtype=I32, device=dev),
         iv=torch.empty((NB, cap, 2), dtype=I32, device=dev))
+    sharded = _sharded_tables(t)
     for name, x in t.items():
         want = torch.uint8 if name == "codes" else I32
-        if x.device != dev or x.dtype != want or not x.is_contiguous():
-            raise ValueError(f"ladder kernel: {name} must be a contiguous "
-                             f"{want} tensor on {dev}")
+        for y in (x.shards if sharded and name in _ARG_TABLES else [x]):
+            on = y.device.type == dev.type if y is not x else y.device == dev
+            if not on or y.dtype != want or not y.is_contiguous():
+                raise ValueError(f"ladder kernel: {name} must be a "
+                                 f"contiguous {want} tensor on {dev}")
     if lane_args.dim() != 2 or lane_args.shape[0] != 8:
         raise ValueError("ladder kernel: lane_args must be (8, NB)")
     if (codes_fr.dim() != 2 or pre13_fr.shape[0] != codes_fr.shape[0]
@@ -232,8 +271,16 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
         n_bases=ixr.n_bases, codes_w=codes_fr.shape[1],
         codes_pk_w=t["codes_pk"].shape[1], pre13_w=pre13_fr.shape[1], nb=NB,
         l_ek=l_ek, a_cap=a_cap, iv_cap=cap, m_cap=m_cap)
-    args = LadderArgs(**{n: t[n].data_ptr() for n in _ARG_PTRS},
-                      **{n: int(sizes[n]) for n in _ARG_INTS})
+    if sharded:
+        from ...parallel.sharded import shard_tab
+
+        args = ShardedLadderArgs(
+            **{n: shard_tab(t[n]) if n in _ARG_TABLES else t[n].data_ptr()
+               for n in _ARG_PTRS},
+            **{n: int(sizes[n]) for n in _ARG_INTS})
+    else:
+        args = LadderArgs(**{n: t[n].data_ptr() for n in _ARG_PTRS},
+                          **{n: int(sizes[n]) for n in _ARG_INTS})
     return args, t
 
 
@@ -247,19 +294,29 @@ def ladder_outputs(t, pack_cap: int):
 
 def _launch(entry, args, kw, pack_cap, wrapper):
     """Launch ladder kernel ``entry`` of ``ladder_lib()`` on CUDA tensors
-    of one card (``ladder_launch_args`` refuses any on another) and count it
-    in ``wrapper.launches``; returns (what the plain version returns, the
+    of one card (``ladder_launch_args`` refuses any on another; a sharded
+    entry reads the shards on their cards, by peer access) and count it in
+    ``wrapper.launches``; returns (what the plain version returns, the
     lanes' trips). A refused launch raises."""
-    from ...kernels.build import LAUNCH_LOCK, ladder_lib
+    from ...kernels.build import LAUNCH_LOCK, enable_peers, ladder_lib
 
     lane_args = args[9]
     if lane_args.device.type != "cuda":
         raise ValueError(f"{entry}: the tensors must be on a CUDA device")
     largs, t = ladder_launch_args(*args, **kw)
     lib = ladder_lib()
-    if lib.ladder_args_size() != ctypes.sizeof(LadderArgs):
-        raise RuntimeError("ladder kernel: LadderArgs differs from the "
-                           "kernel's struct")
+    sharded = isinstance(largs, ShardedLadderArgs)
+    if sharded != ("sharded" in entry):
+        raise ValueError(f"{entry}: the gather tables are "
+                         f"{'sharded' if sharded else 'whole'}")
+    size = (lib.ladder_sharded_args_size() if sharded
+            else lib.ladder_args_size())
+    if size != ctypes.sizeof(largs):
+        raise RuntimeError(f"ladder kernel: {type(largs).__name__} differs "
+                           f"from the kernel's struct")
+    if sharded:
+        enable_peers(lib, "ladder_enable_peer", lane_args.device,
+                     {s.device for n in _ARG_TABLES for s in t[n].shards})
     with LAUNCH_LOCK:
         rc = getattr(lib, entry)(
             ctypes.addressof(largs), lane_args.device.index,
@@ -286,20 +343,38 @@ fast_ladder_cuda.launches = 0
 fast_ladder_cuda.trips = None
 
 
-def _run(kernel, plain, args, kw):
-    """A ladder on its inputs' device: the kernel for CUDA tensors, the
-    eager plain version for CPU tensors. There is no other path: a failed
-    build or launch raises."""
+def fast_ladder_sharded_cuda(*args, l_ek: int, a_cap: int, pack_cap: int,
+                             iv_cap: int | None = None):
+    """``fast_ladder_cuda`` over gather tables cut into shards: the kernel's
+    sharded instantiation. The lanes' trips stay in
+    ``fast_ladder_sharded_cuda.trips``."""
+    out, fast_ladder_sharded_cuda.trips = _launch(
+        "ladder_fast_sharded_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
+                                                 iv_cap=iv_cap), pack_cap,
+        fast_ladder_sharded_cuda)
+    return out
+
+
+fast_ladder_sharded_cuda.launches = 0
+fast_ladder_sharded_cuda.trips = None
+
+
+def _run(kernels, plain, args, kw):
+    """A ladder on its inputs' device: for CUDA tensors the kernel of
+    ``kernels`` (whole, sharded) for the gather tables' layout, for CPU
+    tensors the eager plain version. There is no other path: a failed build
+    or launch raises."""
     dev = args[9].device            # lane_args
     if dev.type == "cuda":
-        return kernel(*args, **kw)
+        return kernels[not torch.is_tensor(args[1])](*args, **kw)
     if dev.type == "cpu":
         return plain(*args, **kw)
     raise ValueError(f"unsupported device {dev}")
 
 
 def run_fast_ladder(*args, **kw):
-    return _run(fast_ladder_cuda, fast_ladder, args, kw)
+    return _run((fast_ladder_cuda, fast_ladder_sharded_cuda), fast_ladder,
+                args, kw)
 
 
 def slow_ladder(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len, pre13_fr,
@@ -392,5 +467,22 @@ slow_ladder_cuda.launches = 0
 slow_ladder_cuda.trips = None
 
 
+def slow_ladder_sharded_cuda(*args, l_ek: int, a_cap: int, m_cap: int,
+                             pack_cap: int, iv_cap: int | None = None):
+    """``slow_ladder_cuda`` over gather tables cut into shards: the kernel's
+    sharded instantiation. The lanes' trips stay in
+    ``slow_ladder_sharded_cuda.trips``."""
+    out, slow_ladder_sharded_cuda.trips = _launch(
+        "ladder_slow_sharded_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
+                                                 iv_cap=iv_cap, m_cap=m_cap),
+        pack_cap, slow_ladder_sharded_cuda)
+    return out
+
+
+slow_ladder_sharded_cuda.launches = 0
+slow_ladder_sharded_cuda.trips = None
+
+
 def run_slow_ladder(*args, **kw):
-    return _run(slow_ladder_cuda, slow_ladder, args, kw)
+    return _run((slow_ladder_cuda, slow_ladder_sharded_cuda), slow_ladder,
+                args, kw)

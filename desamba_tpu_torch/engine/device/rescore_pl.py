@@ -6,9 +6,15 @@ kernel there (``rescore_kernel_pl``) becomes the hand-written CUDA kernel
 module holds what runs outside the kernel: the value-sorted per-direction
 9-mer tables (``_build_sorted_rk``, a stable sort), the packed read and
 reference words, and ``rescore``, which launches the kernel for CUDA
-tensors and runs the plain version only for CPU tensors.
+tensors and runs the plain version only for CPU tensors. Reference words
+cut by row range over a mesh's ``idx`` axis (``parallel/sharded.py``, a
+``ShardedArray`` of whole 128-word rows) launch the kernel's sharded
+instantiation (``rescore_sharded_cuda``); the plain version reads them
+through the same shards.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -85,8 +91,10 @@ def prepare(inp: RescoreIn, words, ref_off, ref_len_arr, n_bases: int):
 
 def rescore_plain(prep, rows=None):
     """The plain version on a prepared batch (any device; runs on the
+    host; sharded reference words are read from their shards, moved to the
     host). Returns (chains, flags) int32 tensors on the CPU."""
-    host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+    host = {k: (v.cpu().numpy() if torch.is_tensor(v) else
+                v.cpu() if hasattr(v, "shards") else v)
             for k, v in prep.items()}
     chains, flags = rescore_ref.rescore_rows(host, rows)
     return torch.from_numpy(chains), torch.from_numpy(flags)
@@ -136,7 +144,26 @@ def smem_bytes(A2: int, K: int) -> int:
 def rescore_cuda(prep):
     """Launch the CUDA kernel on a prepared batch of CUDA tensors.
     Returns (chains (B, C_CAP, CF_N), flags (B, 3)) int32 on the card."""
-    from ...kernels.build import LAUNCH_LOCK, rescore_lib
+    return _launch(prep, rescore_cuda)
+
+
+rescore_cuda.launches = 0
+
+
+def rescore_sharded_cuda(prep):
+    """``rescore_cuda`` with the reference words cut into row-aligned
+    shards (a ``ShardedArray``): the kernel's sharded instantiation reads
+    them on their cards, by peer access where those differ."""
+    return _launch(prep, rescore_sharded_cuda)
+
+
+rescore_sharded_cuda.launches = 0
+
+
+def _launch(prep, wrapper):
+    """Launch K1 (its sharded instantiation where ``prep``'s reference
+    words are sharded) and count it in ``wrapper.launches``."""
+    from ...kernels.build import LAUNCH_LOCK, enable_peers, rescore_lib
 
     B, A2, af = prep["anchors"].shape
     if af != 4 or prep["chains"].shape[1:] != (C_CAP, CF_N):
@@ -146,38 +173,54 @@ def rescore_cuda(prep):
     K = prep["rk_vals"].shape[2]
     nbytes = smem_bytes(A2, K)
     dev = prep["scal"].device
+    words = prep["ref_words"]
+    sharded = not torch.is_tensor(words)
+    if sharded != (wrapper is rescore_sharded_cuda):
+        raise ValueError(f"{wrapper.__name__}: the reference words are "
+                         f"{'sharded' if sharded else 'whole'}")
     for k in ("scal", "chains", "anchors", "schash", "codes_pk", "rk_vals",
               "rk_pos", "ref_words", "ref_off", "ref_len"):
-        t = prep[k]
-        if t.device.type != "cuda" or t.dtype != I32 or not t.is_contiguous():
-            raise ValueError(f"rescore kernel: {k} must be a contiguous "
-                             f"int32 CUDA tensor")
-        if t.device != dev:
-            raise ValueError(f"rescore kernel: {k} is on {t.device}, the "
-                             f"batch on {dev}")
+        for t in (words.shards if sharded and k == "ref_words"
+                  else [prep[k]]):
+            if (t.device.type != "cuda" or t.dtype != I32
+                    or not t.is_contiguous()):
+                raise ValueError(f"rescore kernel: {k} must be a contiguous "
+                                 f"int32 CUDA tensor")
+            if t.device != dev and not sharded:
+                raise ValueError(f"rescore kernel: {k} is on {t.device}, "
+                                 f"the batch on {dev}")
+    if sharded and words.shard_len % LANES:
+        raise ValueError("rescore kernel: a shard must hold whole 128-word "
+                         "rows")
     chains_out = torch.empty((B, C_CAP, CF_N), dtype=I32, device=dev)
     flags = torch.empty((B, 3), dtype=I32, device=dev)
     lib = rescore_lib()
+    if sharded:
+        from ...parallel.sharded import shard_tab
+
+        enable_peers(lib, "rescore_enable_peer", dev,
+                     {t.device for t in words.shards})
+        tab = shard_tab(words)
+        entry, words_ptr = lib.rescore_sharded_launch, ctypes.addressof(tab)
+    else:
+        entry, words_ptr = lib.rescore_launch, words.data_ptr()
     with LAUNCH_LOCK:
-        rc = lib.rescore_launch(
+        rc = entry(
             prep["scal"].data_ptr(), prep["chains"].data_ptr(),
             prep["anchors"].data_ptr(), prep["schash"].data_ptr(),
             prep["codes_pk"].data_ptr(), prep["rk_vals"].data_ptr(),
-            prep["rk_pos"].data_ptr(), prep["ref_words"].data_ptr(),
+            prep["rk_pos"].data_ptr(), words_ptr,
             prep["ref_off"].data_ptr(), prep["ref_len"].data_ptr(),
             chains_out.data_ptr(), flags.data_ptr(),
             B, A2, prep["codes_pk"].shape[1], K,
-            prep["ref_words"].shape[0] // LANES, prep["ref_off"].shape[0],
+            words.shape[0] // LANES, prep["ref_off"].shape[0],
             prep["n_bases"], prep["last_char"], nbytes, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"rescore kernel launch failed: CUDA error "
                                f"{rc}")
-        rescore_cuda.launches += 1
+        wrapper.launches += 1
     return chains_out, flags
-
-
-rescore_cuda.launches = 0
 
 
 def rescore(inp: RescoreIn, words, ref_off, ref_len_arr, n_bases: int):
@@ -187,7 +230,8 @@ def rescore(inp: RescoreIn, words, ref_off, ref_len_arr, n_bases: int):
     is no other path: a CUDA launch that fails raises."""
     prep = prepare(inp, words, ref_off, ref_len_arr, n_bases)
     if inp.n_chains.device.type == "cuda":
-        chains, flags = rescore_cuda(prep)
+        run = rescore_cuda if torch.is_tensor(words) else rescore_sharded_cuda
+        chains, flags = run(prep)
     elif inp.n_chains.device.type == "cpu":
         chains, flags = rescore_plain(prep)
     else:

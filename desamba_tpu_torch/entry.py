@@ -16,14 +16,17 @@ Counterpart of the root ``__graft_entry__.py``:
 ``dryrun_multichip(n_devices, device="cuda")``
     -> holds ``MeshClassifier`` on an ``n_devices`` mesh (dp x idx, idx 2
     where ``n_devices`` is even) against ``DeviceClassifier`` on a
-    synthetic corpus, SAM byte for byte, and prints what ran. A device
-    repeats where the card count is below ``n_devices``; ``device="cpu"``
-    repeats the CPU.
+    synthetic corpus, SAM byte for byte, then (its second phase)
+    ``MeshClassifier(shard_full=True)``, every gather table cut by row
+    range over idx, on the corpus's first 24 reads; prints what ran and
+    the sharded/replicated wall ratio. A device repeats where the card
+    count is below ``n_devices``; ``device="cpu"`` repeats the CPU.
 """
 from __future__ import annotations
 
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -100,8 +103,9 @@ def entry(device="cuda", classifier=None, recs=None):
 
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     """MeshClassifier on an ``n_devices`` mesh against DeviceClassifier on
-    ``synthetic_corpus()``; raises where their SAMs differ. Returns (and
-    prints) the mesh shape and the reads by path."""
+    ``synthetic_corpus()``, then ``shard_full=True`` on its first 24 reads;
+    raises where a SAM differs. Returns (and prints) the mesh shape, the
+    reads by path and the second phase's reads and wall ratio."""
     from .engine.device.classifier import DeviceClassifier
     from .engine.gold.classify import Options
     from .io.sam import format_result
@@ -125,8 +129,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     single = DeviceClassifier(idx, Options(), devices[0])
     exp = [format_result(r, idx.ref_name, single.opts)
            for r in single.classify_reads(recs)]
-    eng = MeshClassifier(idx, Options(),
-                         mesh=make_mesh(n_dp, n_idx, devices=devices))
+    mesh = make_mesh(n_dp, n_idx, devices=devices)
+    eng = MeshClassifier(idx, Options(), mesh=mesh)
     got_res = list(eng.classify_reads(recs))
     got = [format_result(r, idx.ref_name, eng.opts) for r in got_res]
     if got != exp:
@@ -145,4 +149,28 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
           f"to one device on {len(recs)} reads (classified "
           f"{out['classified']}, slow path {out['slow_path']}, fallback "
           f"{out['fallback']})")
+
+    # second phase: every gather table cut by row range over idx
+    def timed_sam(clf, batch):
+        t0 = time.perf_counter()
+        sam = [format_result(r, idx.ref_name, clf.opts)
+               for r in clf.classify_reads(batch)]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return sam, time.perf_counter() - t0
+
+    sub = recs[:24]
+    exp_sub, t_single = timed_sam(single, sub)
+    got_sub, t_full = timed_sam(
+        MeshClassifier(idx, Options(), mesh=mesh, shard_full=True), sub)
+    if got_sub != exp_sub:
+        bad = [r.name for r, a, b in zip(sub, got_sub, exp_sub) if a != b]
+        raise RuntimeError(f"dryrun_multichip: shard_full classify differs "
+                           f"from the single device on {bad}")
+    out.update(shard_full_reads=len(sub),
+               wall_ratio=t_full / max(t_single, 1e-9))
+    print(f"dryrun_multichip shard_full ok: {len(sub)} reads byte-equal to "
+          f"one device with every gather table cut by row range over "
+          f"idx={n_idx}; wall ratio sharded/replicated = "
+          f"{out['wall_ratio']:.2f}")
     return out

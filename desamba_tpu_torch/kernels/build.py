@@ -36,6 +36,17 @@ SOURCES = ("rescore.cu", "cmpcount.cu", "plops.cu", "micro.cu", "caps.cu",
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# ShardTab of kernels/shard.cuh: the accessor of a gather table cut by row
+# range over the mesh's idx axis (parallel/sharded.py), passed by value in
+# a launch's argument block
+MAX_IDX = 8
+
+
+class ShardTab(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p * MAX_IDX), ("len", ctypes.c_int),
+                ("shards", ctypes.c_int)]
+
+
 _libs: dict = {}
 _LOAD_LOCK = threading.Lock()   # one build, load and binding a source
 LAUNCH_LOCK = threading.Lock()  # held by the wrappers around each launch
@@ -124,9 +135,34 @@ def _bound(src, signatures):
     return lib
 
 
+_peers: set = set()
+
+
+def enable_peers(lib, entry, home, devices):
+    """Let card ``home`` load from each other card of ``devices`` in the
+    kernels of ``lib`` (a library links its own CUDA runtime, so each
+    enables its own access): ``entry(home, peer)`` once a pair. Raises
+    where the call fails (a pair without peer access among them)."""
+    for dev in devices:
+        if dev == home:
+            continue
+        key = (lib._name, home.index, dev.index)
+        if key in _peers:
+            continue
+        rc = getattr(lib, entry)(home.index, dev.index)
+        if rc != 0:
+            raise RuntimeError(f"{entry}({home.index}, {dev.index}) failed: "
+                               f"CUDA error {rc}")
+        _peers.add(key)
+
+
 def rescore_lib():
-    # 12 pointers, nine sizes, the card's ordinal, stream
-    return _bound("rescore.cu", {"rescore_launch": "p" * 12 + "i" * 10 + "p"})
+    # 12 pointers, nine sizes, the card's ordinal, stream (the sharded
+    # launcher: the reference words as a pointer to their ShardTab)
+    sig = "p" * 12 + "i" * 10 + "p"
+    return _bound("rescore.cu", {"rescore_launch": sig,
+                                 "rescore_sharded_launch": sig,
+                                 "rescore_enable_peer": "ii"})
 
 
 def cmpcount_lib():
@@ -160,12 +196,17 @@ def caps_lib():
 
 
 def ladder_lib():
-    # a pointer to the LadderArgs block, the card's ordinal, stream; the
-    # struct's size; a block's shared memory at an SP_SET capacity
+    # a pointer to the LadderArgs (ShardedLadderArgs) block, the card's
+    # ordinal, stream; the structs' sizes; a block's shared memory at an
+    # SP_SET capacity; peer access from one card to another
     return _bound("ladder.cu", {"ladder_fast_launch": "pip",
                                 "ladder_slow_launch": "pip",
+                                "ladder_fast_sharded_launch": "pip",
+                                "ladder_slow_sharded_launch": "pip",
                                 "ladder_args_size": "",
-                                "ladder_smem_bytes": "i"})
+                                "ladder_sharded_args_size": "",
+                                "ladder_smem_bytes": "i",
+                                "ladder_enable_peer": "ii"})
 
 
 def chain_lib():

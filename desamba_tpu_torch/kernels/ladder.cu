@@ -40,6 +40,12 @@
 // first: the caller's lanes come in ascending seed length, so the longest
 // ladders start first.
 //
+// Each has a second instantiation, fast_ladder_sharded_kernel and
+// slow_ladder_sharded_kernel, for the index cut by row range over a mesh's
+// idx axis (desamba_tpu_torch/parallel/sharded.py, the JAX package's
+// shard_full layout): the same body, every gather table read through
+// shard.cuh's ShardTab accessor, shards on other cards by peer access.
+//
 // Only the launchers need nvcc (__CUDACC__); the rest also compiles as host
 // C++ over tests/cuda_host/warp_emu.h, which is how the CPU tests run it.
 #include <cstdint>
@@ -59,7 +65,8 @@ struct Lane {
   bool on;
 };
 
-__device__ inline Lane load_lane(const lad::LadderArgs& A, int lane) {
+template <class Args>
+__device__ inline Lane load_lane(const Args& A, int lane) {
   const int* la = A.lane_args + lane;
   const int nb = A.nb;
   return Lane{la[0],      la[nb],     la[2 * nb], la[3 * nb],
@@ -67,25 +74,28 @@ __device__ inline Lane load_lane(const lad::LadderArgs& A, int lane) {
 }
 
 // The 13-mer value of the lane's probe at read position ki
-__device__ inline int probe_pre13(const lad::LadderArgs& A, const Lane& L,
-                                  int ki) {
+template <class Args>
+__device__ inline int probe_pre13(const Args& A, const Lane& L, int ki) {
   return A.pre13[(size_t)L.ridx * A.pre13_w +
                  lad::clampi(L.base + ki, 0, A.pre13_w - 1)] &
          lad::PRE_IDX_MASK;
 }
 
 // The calling warp's lane (-1 past the last) and its shared memory
-__device__ inline int warp_lane(const lad::LadderArgs& A) {
+template <class Args>
+__device__ inline int warp_lane(const Args& A) {
   const int w = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   return w < A.nb ? A.nb - 1 - w : -1;
 }
 
-__device__ inline int* warp_smem(int* smem, const lad::LadderArgs& A) {
+template <class Args>
+__device__ inline int* warp_smem(int* smem, const Args& A) {
   return smem + (threadIdx.x >> 5) * lad::warp_words(A.iv_cap);
 }
 
-__global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
-    fast_ladder_kernel(lad::LadderArgs A) {
+// The fast ladder of the calling warp's lane, over either table layout
+template <class Args>
+__device__ inline void fast_ladder_body(const Args& A) {
   using namespace lad;
   extern __shared__ __align__(16) int ladder_smem[];
   const int lane = warp_lane(A);
@@ -179,8 +189,9 @@ __device__ inline int top_merge(int* scr, int n_top, int n_new,
   return imin(n_top + n_new, MEM_SEARCH_SLOW);
 }
 
-__global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
-    slow_ladder_kernel(lad::LadderArgs A) {
+// The slow ladder of the calling warp's lane, over either table layout
+template <class Args>
+__device__ inline void slow_ladder_body(const Args& A) {
   using namespace lad;
   extern __shared__ __align__(16) int ladder_smem[];
   const int lane = warp_lane(A);
@@ -228,8 +239,39 @@ __global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
   }
 }
 
-// The struct's size, so the caller can check its mirror of LadderArgs.
+// The kernels: B2 and B3 over whole tables (LadderArgs) and over tables
+// cut by row range over the mesh's idx axis (ShardedLadderArgs, the JAX
+// package's shard_full layout), one body each. The sharded argument block
+// stays in the parameter space (__grid_constant__): the accessor reads a
+// shard's pointer there, where a copy of the ~1.3 KB block would go to
+// each thread's stack.
+__global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
+    fast_ladder_kernel(lad::LadderArgs A) {
+  fast_ladder_body(A);
+}
+
+__global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
+    slow_ladder_kernel(lad::LadderArgs A) {
+  slow_ladder_body(A);
+}
+
+__global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
+    fast_ladder_sharded_kernel(
+        const __grid_constant__ lad::ShardedLadderArgs A) {
+  fast_ladder_body(A);
+}
+
+__global__ void __launch_bounds__(LADDER_THREADS, LADDER_MIN_BLOCKS)
+    slow_ladder_sharded_kernel(
+        const __grid_constant__ lad::ShardedLadderArgs A) {
+  slow_ladder_body(A);
+}
+
+// The structs' sizes, so the caller can check its mirrors of them.
 extern "C" int ladder_args_size() { return (int)sizeof(lad::LadderArgs); }
+extern "C" int ladder_sharded_args_size() {
+  return (int)sizeof(lad::ShardedLadderArgs);
+}
 
 // A block's dynamic shared memory at SP_SET capacity iv_cap: each warp's
 // scratch and SP_SET. 0 for an iv_cap the launchers refuse.
@@ -241,11 +283,10 @@ extern "C" int ladder_smem_bytes(int iv_cap) {
 }
 
 #ifdef __CUDACC__
-// The dynamic shared memory of a launch of `kernel` on a (0 for one that is
-// refused), opted in to where it passes the default 48 KB.
-static int ladder_smem_opt_in(const void* kernel, const lad::LadderArgs* a,
-                              int* smem) {
-  *smem = ladder_smem_bytes(a->iv_cap);
+// The dynamic shared memory of a launch of `kernel` at iv_cap (0 for one
+// that is refused), opted in to where it passes the default 48 KB.
+static int ladder_smem_opt_in(const void* kernel, int iv_cap, int* smem) {
+  *smem = ladder_smem_bytes(iv_cap);
   if (*smem == 0) return (int)cudaErrorInvalidValue;
   if (*smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
@@ -253,32 +294,55 @@ static int ladder_smem_opt_in(const void* kernel, const lad::LadderArgs* a,
 }
 
 // One warp a lane, LADDER_WARPS a block, on `stream` of card `device` (the
-// card of every pointer in `a`): this library's current device is made
+// card of every pointer in `a` but the shards of a sharded table, which
+// it reaches by peer access): this library's current device is made
 // `device` first, since the attribute and the launch go to the current one.
 // Return the CUDA error code of the launch (0 = launched).
-extern "C" int ladder_fast_launch(const lad::LadderArgs* a, int device,
-                                  cudaStream_t stream) {
+template <class Args>
+static int ladder_launch(void (*kernel)(Args), const Args* a, int device,
+                         cudaStream_t stream) {
   if (a->nb <= 0) return 0;
   int smem = 0;
   int e = (int)cudaSetDevice(device);
   if (e != 0) return e;
-  e = ladder_smem_opt_in((const void*)fast_ladder_kernel, a, &smem);
+  e = ladder_smem_opt_in((const void*)kernel, a->iv_cap, &smem);
   if (e != 0) return e;
-  fast_ladder_kernel<<<(a->nb + LADDER_WARPS - 1) / LADDER_WARPS,
-                       LADDER_THREADS, smem, stream>>>(*a);
+  kernel<<<(a->nb + LADDER_WARPS - 1) / LADDER_WARPS, LADDER_THREADS, smem,
+           stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ladder_fast_launch(const lad::LadderArgs* a, int device,
+                                  cudaStream_t stream) {
+  return ladder_launch(fast_ladder_kernel, a, device, stream);
 }
 
 extern "C" int ladder_slow_launch(const lad::LadderArgs* a, int device,
                                   cudaStream_t stream) {
-  if (a->nb <= 0) return 0;
-  int smem = 0;
+  return ladder_launch(slow_ladder_kernel, a, device, stream);
+}
+
+extern "C" int ladder_fast_sharded_launch(const lad::ShardedLadderArgs* a,
+                                          int device, cudaStream_t stream) {
+  return ladder_launch(fast_ladder_sharded_kernel, a, device, stream);
+}
+
+extern "C" int ladder_slow_sharded_launch(const lad::ShardedLadderArgs* a,
+                                          int device, cudaStream_t stream) {
+  return ladder_launch(slow_ladder_sharded_kernel, a, device, stream);
+}
+
+// Let card `device` load from card `peer` (a shard's) in this library's
+// kernels: this library links its own CUDA runtime, so it enables the
+// access itself. 0 once enabled (also where it already was).
+extern "C" int ladder_enable_peer(int device, int peer) {
   int e = (int)cudaSetDevice(device);
   if (e != 0) return e;
-  e = ladder_smem_opt_in((const void*)slow_ladder_kernel, a, &smem);
-  if (e != 0) return e;
-  slow_ladder_kernel<<<(a->nb + LADDER_WARPS - 1) / LADDER_WARPS,
-                       LADDER_THREADS, smem, stream>>>(*a);
-  return (int)cudaGetLastError();
+  const cudaError_t r = cudaDeviceEnablePeerAccess(peer, 0);
+  if (r == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();               // clear the sticky-free error state
+    return 0;
+  }
+  return (int)r;
 }
 #endif

@@ -12,7 +12,10 @@
 // step for step: int where the port holds int32, uint32_t exactly where it
 // goes through intops.u32 / M32 (the FM intervals, the hash13 bucket, the
 // rank words, the suffix length), JAX's clamping gathers (take) and the
-// port's explicit clamps where each stands.
+// port's explicit clamps where each stands. Every load of a gather table
+// goes through shard.cuh's accessor: ld where the index is clamped, ld_take
+// where JAX's gather is (a whole table clamps, a sharded one reads 0 past
+// it, as the JAX sharded gather does), row_take for an FM block.
 //
 // The lane's serial chain (the ladder's trips, the 13-mer jumpstart, the
 // rank chase, map_seed's prefix and suffix extensions, lv) runs in all 32
@@ -54,7 +57,13 @@
 #pragma once
 #include <cstdint>
 
+#include "shard.cuh"
+
 namespace lad {
+
+using shard::ld;
+using shard::ld_take;
+using shard::row_take;
 
 // constants of desamba_tpu_torch/constants.py and the port's modules
 constexpr int L_PRE_IDX = 13;
@@ -76,28 +85,34 @@ constexpr int BIG = 1 << 30;      // fm.BIG
 constexpr int GARBAGE = 200;      // mapseed.GARBAGE
 constexpr int A_NF = 12;          // mapseed.A_NF
 
-// Everything a ladder launch reads and writes. Pointers first, then ints;
-// desamba_tpu_torch/engine/device/ladder.py mirrors it field for field
-// (LadderArgs) and checks the size against ladder_args_size(). uint32
-// tables are the DeviceIndex's int32 bit patterns.
-struct LadderArgs {
-  const uint32_t* fm_blocks;      // (n_blocks, 9)
+// Everything a ladder launch reads and writes. Tables and pointers first,
+// then ints; desamba_tpu_torch/engine/device/ladder.py mirrors it field for
+// field (LadderArgs, ShardedLadderArgs) and checks the sizes against
+// ladder_args_size() and ladder_sharded_args_size(). uint32 tables are the
+// DeviceIndex's int32 bit patterns. Tab is the gather tables' layout
+// (shard.cuh): shard::Flat, one pointer each (LadderArgs), or
+// shard::ShardTab, cut by row range over the mesh's idx axis
+// (ShardedLadderArgs). rank6, ref_off, q_mem and q_lv stay whole in both,
+// as in the JAX package's sharded layout.
+template <template <class> class Tab>
+struct LadderArgsT {
+  Tab<uint32_t> fm_blocks;        // (n_blocks, 9)
   const uint32_t* rank6;          // (6,)
-  const uint32_t* hash13;         // (n_hash13,)
-  const int* row_pos;             // (n_row_pos,)
-  const int* isa;                 // (n_text,)
-  const uint32_t* text_pk;        // (n_text_pk,) 16 chars a word
-  const uint32_t* sep_any;        // bitmaps, 32 positions a word
-  const uint32_t* sep_hash;
-  const uint32_t* samp_bits;
-  const int* uni_start;           // (n_uni_tab,)
-  const int* uni_len;
-  const int* uni_ref_list;
-  const int* rp_global_off;       // (n_rp,)
-  const int* rp_ref_id;
+  Tab<uint32_t> hash13;           // (n_hash13,)
+  Tab<int> row_pos;               // (n_row_pos,)
+  Tab<int> isa;                   // (n_text,)
+  Tab<uint32_t> text_pk;          // (n_text_pk,) 16 chars a word
+  Tab<uint32_t> sep_any;          // bitmaps, 32 positions a word
+  Tab<uint32_t> sep_hash;
+  Tab<uint32_t> samp_bits;
+  Tab<int> uni_start;             // (n_uni_tab,)
+  Tab<int> uni_len;
+  Tab<int> uni_ref_list;
+  Tab<int> rp_global_off;         // (n_rp,)
+  Tab<int> rp_ref_id;
   const int* ref_off;             // (n_ref,)
-  const uint32_t* ref_pk;         // (n_ref_pk,)
-  const int* pos2uni;             // (text_len,)
+  Tab<uint32_t> ref_pk;           // (n_ref_pk,)
+  Tab<int> pos2uni;               // (text_len,)
   const int* q_mem;               // (n_q_mem,)
   const int* q_lv;                // (q_lv_rows, q_lv_cols)
   const uint8_t* codes;           // (n_reads, codes_w) read codes, 0..3
@@ -118,6 +133,8 @@ struct LadderArgs {
       pre13_w, nb, l_ek, a_cap, iv_cap,
       m_cap;                      // slow: MEMs a lane stores (fast: unused)
 };
+using LadderArgs = LadderArgsT<shard::Flat>;
+using ShardedLadderArgs = LadderArgsT<shard::ShardTab>;
 
 // ---- integer helpers ---------------------------------------------------------
 #ifdef __CUDA_ARCH__
@@ -148,7 +165,8 @@ __device__ inline int pymod(int i, int n) {
   const int r = i % n;
   return r < 0 ? r + n : r;
 }
-__device__ inline int q_lv_at(const LadderArgs& A, int e, int l) {
+template <class Args>
+__device__ inline int q_lv_at(const Args& A, int e, int l) {
   return A.q_lv[take_i(e, A.q_lv_rows) * A.q_lv_cols + take_i(l, A.q_lv_cols)];
 }
 
@@ -235,20 +253,22 @@ __device__ inline uint32_t funnel(uint32_t g0, uint32_t g1, int sh) {
 }
 
 // 16 chars of a packed row from char `base` on (chars below 0 read as 0)
-__device__ inline uint32_t word16(const uint32_t* pk, int kw, int base) {
+template <class Tab>
+__device__ inline uint32_t word16(Tab pk, int kw, int base) {
   const int b = imax(base, 0);
   const int w0 = b >> 4;
-  const uint32_t v = funnel(pk[clampi(w0, 0, kw - 1)],
-                            pk[clampi(w0 + 1, 0, kw - 1)], (b & 15) << 1);
+  const uint32_t v = funnel(ld(pk, clampi(w0, 0, kw - 1)),
+                            ld(pk, clampi(w0 + 1, 0, kw - 1)), (b & 15) << 1);
   return base < 0 ? v << (imin(-base, 15) << 1) : v;
 }
 
 // 16 bitmap bits for positions [lo, lo + 15], LSB = position lo
-__device__ inline uint32_t bits16(const uint32_t* bits, int nw, int lo) {
+template <class Tab>
+__device__ inline uint32_t bits16(Tab bits, int nw, int lo) {
   const int b = imax(lo, 0);
   const int w0 = b >> 5;
-  uint32_t v = funnel(bits[clampi(w0, 0, nw - 1)],
-                      bits[clampi(w0 + 1, 0, nw - 1)], b & 31);
+  uint32_t v = funnel(ld(bits, clampi(w0, 0, nw - 1)),
+                      ld(bits, clampi(w0 + 1, 0, nw - 1)), b & 31);
   if (lo < 0) v <<= imin(-lo, 16);
   return v & 0xFFFFu;
 }
@@ -263,7 +283,8 @@ __device__ inline uint32_t spread16(uint32_t x) {
 // Backward match run: read chars qrow[col_off + q_hi - k] against text
 // chars t_hi - k, k = 0.., up to the first mismatch, text separator, start
 // of either, or cap.
-__device__ inline int lce_backward(const LadderArgs& A, const uint32_t* qrow,
+template <class Args>
+__device__ inline int lce_backward(const Args& A, const uint32_t* qrow,
                                    int col_off, int q_hi, int t_hi, int cap) {
   int n = 0;
   bool run = cap > 0;
@@ -290,7 +311,8 @@ __device__ inline int lce_backward(const LadderArgs& A, const uint32_t* qrow,
 
 // text[t_hi], text[t_hi - 1], ... (13 chars); separators and positions
 // below 0 as 4
-__device__ inline void collect_backward(const LadderArgs& A, int t_hi,
+template <class Args>
+__device__ inline void collect_backward(const Args& A, int t_hi,
                                         uint8_t* out) {
   const uint32_t tw = word16(A.text_pk, A.n_text_pk, t_hi - 15);
   const uint32_t sep = bits16(A.sep_any, A.n_sep_any, t_hi - 15);
@@ -311,15 +333,17 @@ __device__ inline uint32_t range_masks(uint32_t word, int lo, int hi,
 }
 
 // Smallest position q in [lo, hi] with its bit set: found, q (0 if not)
-__device__ inline bool find_bit_low(const uint32_t* bits, int nw, int lo,
-                                    int hi, int& q) {
+template <class Tab>
+__device__ inline bool find_bit_low(Tab bits, int nw, int lo, int hi,
+                                    int& q) {
   q = 0;
   if (!(hi >= lo && hi >= 0)) return false;
   int w = imax(lo, 0) >> 5;
   const int w_hi = imax(hi, 0) >> 5;
   for (;;) {
     const int base = w << 5;
-    const uint32_t m = range_masks(bits[clampi(w, 0, nw - 1)], lo, hi, base);
+    const uint32_t m =
+        range_masks(ld(bits, clampi(w, 0, nw - 1)), lo, hi, base);
     if (m != 0) {
       q = base + ctz32(m);
       return true;
@@ -330,15 +354,17 @@ __device__ inline bool find_bit_low(const uint32_t* bits, int nw, int lo,
 }
 
 // Largest position q in [lo, hi] with its bit set: found, q (0 if not)
-__device__ inline bool find_bit_high(const uint32_t* bits, int nw, int lo,
-                                     int hi, int& q) {
+template <class Tab>
+__device__ inline bool find_bit_high(Tab bits, int nw, int lo, int hi,
+                                     int& q) {
   q = 0;
   if (!(hi >= lo && hi >= 0)) return false;
   int w = imax(hi, 0) >> 5;
   const int w_lo = imax(lo, 0) >> 5;
   for (;;) {
     const int base = w << 5;
-    const uint32_t m = range_masks(bits[clampi(w, 0, nw - 1)], lo, hi, base);
+    const uint32_t m =
+        range_masks(ld(bits, clampi(w, 0, nw - 1)), lo, hi, base);
     if (m != 0) {
       q = base + 31 - clz32(m);
       return true;
@@ -430,8 +456,9 @@ __device__ inline bool ivset_walk(IvSet& S, int p, int nat, bool& abort,
 
 // ---- fm.py -------------------------------------------------------------------
 // occ(c, r): the count of char c in rows [0, r), from the rank checkpoints
-__device__ inline uint32_t rank_from_blocks(const LadderArgs& A, int r, int c) {
-  const uint32_t* got = A.fm_blocks + 9 * take_i(r >> 5, A.n_blocks);
+template <class Args>
+__device__ inline uint32_t rank_from_blocks(const Args& A, int r, int c) {
+  const uint32_t* got = row_take(A.fm_blocks, r >> 5, A.n_blocks, 9);
   const int within = r & 31;
   const uint32_t cm = (uint32_t)c * 0x11111111u;
   uint32_t sum = 0;
@@ -455,7 +482,8 @@ struct Interval {
 };
 
 // The reference's occ-chase interval loop (fm._interval_rank_chase)
-__device__ inline Interval interval_rank_chase(const LadderArgs& A, int row,
+template <class Args>
+__device__ inline Interval interval_rank_chase(const Args& A, int row,
                                                int col_off, int str_idx,
                                                uint32_t sp, uint32_t ep,
                                                int max_rst, int l_min_mth) {
@@ -497,15 +525,15 @@ __device__ inline int kth_largest(int v, int gt, int k, int t) {
 // position and runs its LCE, then the chase's stop in closed form. Writes
 // the first R survivors' walk positions, in row order, to scr[SCR_P..]
 // (read after a __syncwarp).
-template <int R>
-__device__ inline Interval interval_sa(const LadderArgs& A,
+template <int R, class Args>
+__device__ inline Interval interval_sa(const Args& A,
                                        const uint32_t* qrow, int col_off,
                                        int str_idx, uint32_t sp0, int n0,
                                        int l_min_mth, int* scr, int t) {
   const int cap_l = imax(str_idx - L_PRE_IDX + 1, 0);
   int lden = -1, pden = 0;
   if (t < n0) {
-    pden = A.row_pos[clampi((int)(sp0 + (uint32_t)t), 0, A.n_text - 1)];
+    pden = ld(A.row_pos, clampi((int)(sp0 + (uint32_t)t), 0, A.n_text - 1));
     lden = lce_backward(A, qrow, col_off, str_idx - L_PRE_IDX, pden - 1,
                         cap_l);
   }
@@ -552,14 +580,14 @@ struct Row {
 // position space through the lane's SP_SET to a sampled position. Row k's
 // LCE, sample search and isa loads run in thread k; the SP_SET walks, one
 // row after another. Returns thread t's row t (not valid past R).
-template <int R>
-__device__ inline Row mem_probe(const LadderArgs& A, int row, int col_off,
+template <int R, class Args>
+__device__ inline Row mem_probe(const Args& A, int row, int col_off,
                                 int str_idx, int pre_v, IvSet& S,
                                 int l_min_mth, int* scr, int t) {
   Row out{0, 0, 0, 0, false, false};
   const uint32_t* qrow = A.codes_pk + (size_t)row * A.codes_pk_w;
-  const uint32_t sp0 = A.hash13[take_i(pre_v, A.n_hash13)];
-  const uint32_t ep0 = A.hash13[take_i(pre_v + 1, A.n_hash13)];
+  const uint32_t sp0 = ld_take(A.hash13, pre_v, A.n_hash13);
+  const uint32_t ep0 = ld_take(A.hash13, pre_v + 1, A.n_hash13);
   const int n0 = (int)(ep0 - sp0);
   const bool big = n0 > SA_CAP;
   int p = 0;
@@ -568,7 +596,7 @@ __device__ inline Row mem_probe(const LadderArgs& A, int row, int col_off,
     iv = interval_rank_chase(A, row, col_off, str_idx, sp0, ep0, R,
                              l_min_mth);
     if (t < iv.n_rows)
-      p = A.row_pos[clampi((int)(iv.nsp + (uint32_t)t), 0, A.n_text - 1)];
+      p = ld(A.row_pos, clampi((int)(iv.nsp + (uint32_t)t), 0, A.n_text - 1));
   } else {
     iv = interval_sa<R>(A, qrow, col_off, str_idx, sp0, n0, l_min_mth, scr,
                         t);
@@ -604,8 +632,8 @@ __device__ inline Row mem_probe(const LadderArgs& A, int row, int col_off,
       T >= 0 && find_bit_low(A.samp_bits, A.n_samp, p - T, p, qs);
   const int total = (abort ? -1000 : wlen) + iv.match_len + 1;
   out.len = total;
-  out.sp = A.isa[clampi(p - wlen, 0, A.n_text - 1)];
-  out.sa = found ? A.isa[clampi(qs, 0, A.n_text - 1)] : 0;
+  out.sp = ld(A.isa, clampi(p - wlen, 0, A.n_text - 1));
+  out.sa = found ? ld(A.isa, clampi(qs, 0, A.n_text - 1)) : 0;
   out.sa_ok = found;
   out.sa_l = found ? (p - qs) - T : -(T + 1);
   out.valid = total >= l_min_mth;
@@ -628,13 +656,14 @@ __device__ inline void qslice13(const uint32_t* qrow, int kw, int blen,
 
 // 13-char packed-reference window: chars from `length` on are 0; positions
 // outside the reference repeat its first or last char
-__device__ inline void get_ref13(const LadderArgs& A, int offset, int length,
+template <class Args>
+__device__ inline void get_ref13(const Args& A, int offset, int length,
                                  bool forward, uint8_t* out) {
   const int start = forward ? imax(offset, 0) : imax(offset, 0) - LV_L;
   const uint32_t v16 = word16(A.ref_pk, A.n_ref_pk, start);
-  const uint8_t first = A.ref_pk[0] & 3u;
+  const uint8_t first = ld(A.ref_pk, 0) & 3u;
   const int nl = A.n_bases - 1;
-  const uint8_t last = (A.ref_pk[nl >> 4] >> ((nl & 15) * 2)) & 3u;
+  const uint8_t last = (ld(A.ref_pk, nl >> 4) >> ((nl & 15) * 2)) & 3u;
   uint8_t v[W13];
   for (int m = 0; m < W13; ++m) {
     const int idx = start + m;
@@ -655,33 +684,37 @@ __device__ inline int leading_matches(const uint8_t* t, const uint8_t* q,
 }
 
 // gold Locator.get_uni: (row, search_l) -> unitig, its offset, global offset
-__device__ inline void get_uni(const LadderArgs& A, int row, int search_l,
+template <class Args>
+__device__ inline void get_uni(const Args& A, int row, int search_l,
                                bool active, int& u, int& uoff, int& g) {
   const int L = A.text_len;
-  const int p1 = pymod(A.row_pos[take_i(row, A.n_row_pos)] - 1, L);
+  const int p1 = pymod(ld_take(A.row_pos, row, A.n_row_pos) - 1, L);
   if (active && search_l > 0) {
     const int q = p1 + search_l + 1;
-    u = A.pos2uni[clampi(q, 0, L - 1)];
-    uoff = q - A.uni_start[take_i(u, A.n_uni_tab)];
-    if (uoff == A.uni_len[take_i(u, A.n_uni_tab)]) {
+    u = ld(A.pos2uni, clampi(q, 0, L - 1));
+    uoff = q - ld_take(A.uni_start, u, A.n_uni_tab);
+    if (uoff == ld_take(A.uni_len, u, A.n_uni_tab)) {
       u += 1;
       uoff = -1;
     }
   } else {
-    u = A.pos2uni[p1];
-    uoff = p1 - A.uni_start[take_i(u, A.n_uni_tab)] + search_l + 1;
+    u = ld(A.pos2uni, p1);
+    uoff = p1 - ld_take(A.uni_start, u, A.n_uni_tab) + search_l + 1;
   }
-  g = A.rp_global_off[take_i(A.uni_ref_list[take_i(u, A.n_uni_tab)], A.n_rp)] +
+  g = ld_take(A.rp_global_off, ld_take(A.uni_ref_list, u, A.n_uni_tab),
+              A.n_rp) +
       uoff;
 }
 
-__device__ inline int uni_len_of(const LadderArgs& A, int u) {
-  return A.uni_len[take_i(imin(u, A.n_uni), A.n_uni_tab)];
+template <class Args>
+__device__ inline int uni_len_of(const Args& A, int u) {
+  return ld_take(A.uni_len, imin(u, A.n_uni), A.n_uni_tab);
 }
 
 // gold get_new_ed: the re-extension of one side against the true reference
 // (left: is_fwd, the read backward from q_off; right: forward)
-__device__ inline void get_new_ed(const LadderArgs& A, const uint32_t* qrow,
+template <class Args>
+__device__ inline void get_new_ed(const Args& A, const uint32_t* qrow,
                                   int blen, int base, int q_off, int t_off,
                                   int l_read, bool is_fwd, int& ed,
                                   int& length, int& l_ext) {
@@ -723,7 +756,8 @@ __device__ inline void get_new_ed(const LadderArgs& A, const uint32_t* qrow,
 // reference occurrence of the unitig into anc[a_cnt] while a_cnt < a_cap,
 // counting every one: thread t takes occurrences t, t + 32, ... of each
 // round of 32, and a ballot keeps the occurrence order. Returns max_s.
-__device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
+template <class Args>
+__device__ inline int map_seed(const Args& A, int ridx, int base,
                                int read_len, int direction, int seed_id,
                                int sp_row, int l_m, bool sa_ok, int sa_row,
                                int sa_l, int q_off, int* anc, int& a_cnt,
@@ -740,7 +774,7 @@ __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
   qslice13(qrow, kw, blen, base + q_off, -1, q_pre);
   int b_p = sp_row;
   const bool hash_hit = (b_p & SA_MASK) == 0;
-  const int p0 = A.row_pos[clampi(b_p, 0, L_t - 1)];
+  const int p0 = ld(A.row_pos, clampi(b_p, 0, L_t - 1));
   const bool do_pre = !sa_ok && !hash_hit;
   const int cap_pre = imax(l_pre0, 1);
   int qs_pre = 0, qh_pre = 0;
@@ -755,7 +789,7 @@ __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
   collect_backward(A, p0 - 1, t_pre);
   for (int m = 0; m < W13; ++m)
     if (!(do_pre && m < s_l)) t_pre[m] = 0;
-  if (do_pre) b_p = A.isa[clampi(p0 - s_l, 0, L_t - 1)];
+  if (do_pre) b_p = ld(A.isa, clampi(p0 - s_l, 0, L_t - 1));
   const bool walk_sampled = hash_hit || (fs_pre && s_l == k_samp);
   const bool have_uni1 = sa_ok || walk_sampled;
   int uni, u_off, t_off;
@@ -775,7 +809,7 @@ __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
     int q2, q2w = 0;
     const bool f2 = find_bit_high(A.samp_bits, A.n_samp, 0, p2 - 1, q2);
     if (!f2) find_bit_high(A.samp_bits, A.n_samp, p2, L_t - 1, q2w);
-    b_p = A.isa[clampi(f2 ? q2 : q2w, 0, L_t - 1)];
+    b_p = ld(A.isa, clampi(f2 ? q2 : q2w, 0, L_t - 1));
     s_l += f2 ? p2 - q2 : p2 + (L_t - q2w);
     get_uni(A, b_p, s_l, true, uni, u_off, t_off);
     dead = uni_len_of(A, uni) < MIN_UNI_L;
@@ -816,8 +850,9 @@ __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
 
   // ---- fan out over the unitig's reference occurrences
   const int uni_c = imin(uni, A.n_uni);
-  const int rl_s = A.uni_ref_list[take_i(uni_c, A.n_uni_tab)];
-  const int rl_e = A.uni_ref_list[take_i(imin(uni_c + 1, A.n_uni), A.n_uni_tab)];
+  const int rl_s = ld_take(A.uni_ref_list, uni_c, A.n_uni_tab);
+  const int rl_e =
+      ld_take(A.uni_ref_list, imin(uni_c + 1, A.n_uni), A.n_uni_tab);
   const int n_occ = rl_e - rl_s;
   const bool live2 = !dead && s > 0;
   const bool huge = live2 && n_occ > 50 && n_occ >= 1000;
@@ -834,7 +869,7 @@ __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
       int g_off = 0, a_mtch = l_m, a_score = s;
       bool emit = false;
       if (ci < rl_e) {
-        g_off = A.rp_global_off[cic];
+        g_off = ld(A.rp_global_off, cic);
         if (rs_l)
           get_new_ed(A, qrow, blen, base, q_off, g_off + u_off - 1, read_len,
                      true, a_le, a_ll, lx_l);
@@ -857,7 +892,7 @@ __device__ inline int map_seed(const LadderArgs& A, int ridx, int base,
       if (emit) {
         max_s = imax(max_s, a_score);
         if (slot < A.a_cap) {
-          const int ref_id = A.rp_ref_id[cic];
+          const int ref_id = ld(A.rp_ref_id, cic);
           const int glob = g_off + u_off - lx_l;
           int* rec = anc + (size_t)slot * A_NF;
           rec[0] = a_mtch;

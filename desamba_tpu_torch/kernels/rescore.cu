@@ -67,6 +67,11 @@
 // keep fallbacks in parity (CF_CAP, F_CAP, H_CAP, S_CAP, MAX_STEPS), the
 // bug_zero window truncation and the u32 wraps are kept.
 //
+// rescore_sharded_kernel is the same body over the reference words cut by
+// row range over a mesh's idx axis (desamba_tpu_torch/parallel/sharded.py):
+// fetch_window reads them through shard.cuh's ShardTab accessor, a shard
+// on another card by peer access. A shard holds whole 128-word rows.
+//
 // Only the launcher needs nvcc (__CUDACC__); the rest also compiles as host
 // C++ over a header that runs the 32 lanes of a warp as coroutines
 // (tests/cuda_host/warp_emu.h), which is how the CPU tests run this file.
@@ -74,6 +79,7 @@
 #include <cuda_runtime.h>
 
 #include "plops.cuh"
+#include "shard.cuh"
 
 using po::ule;   // the unsigned compares are the helper library's
 using po::ult;
@@ -104,7 +110,11 @@ enum { C_REF, C_DIR, C_SUM, C_ANUM, C_TST, C_TED, C_QST, C_QED, C_INDEL,
 enum { FB_MIDW = 1, FB_WRAP = 2, FB_HITS = 4, FB_FCAP = 8, FB_SMS = 16,
        FB_OVER = 32 };
 
-struct Params {
+// RT is the reference words' layout (shard.cuh): one pointer (Params), or
+// the 128-word rows cut by row range over the mesh's idx axis
+// (ShardedParams, the JAX package's shard_full layout)
+template <class RT>
+struct ParamsT {
   const int* scal;          // (B, 4) [n_chains, n_hash, read_len, buf_len]
   const int* chains;        // (B, C_CAP, CF_N)
   const int* anchors;       // (B, A2, 4) [iir, roff, mlen, pre]
@@ -112,13 +122,15 @@ struct Params {
   const unsigned* codes_pk; // (B, nw) packed F+R read buffer
   const int* rk_vals;       // (B, 2, K) value-sorted 9-mers per direction
   const int* rk_pos;        // (B, 2, K) their read positions
-  const unsigned* ref_words;  // (NR * 128,) packed reference + zero row
+  RT ref_words;              // (NR * 128,) packed reference + zero row
   const int* ref_off;       // (nref,)
   const int* ref_len;       // (nref,)
   int* chains_out;          // (B, C_CAP, CF_N)
   int* flags;               // (B, 3) [fallback, reason bits, steps]
   int B, A2, nw, K, NR, nref, n_bases, last_char;
 };
+using Params = ParamsT<shard::Flat<unsigned>>;
+using ShardedParams = ParamsT<shard::ShardTab<unsigned>>;
 
 // ---- the per-warp shared-memory region, in int32 words ---------------------
 // chw [C_CAP][CF_N] | hashv [10][HASH_CAP] | sms [4][S_CAP] | wj [128] |
@@ -171,9 +183,10 @@ __device__ __forceinline__ int warp_excl_scan(int v, int lane) {
 }
 
 // One read's walk. Every lane holds the same scalars; chw ... fence point
-// into this warp's shared-memory region.
-struct Read {
-  const Params* P;
+// into this warp's shared-memory region. PT: Params or ShardedParams.
+template <class PT>
+struct ReadT {
+  const PT* P;
   int lane;
   int n_chains, n_hash, l_read, buf_len, kw, G;
   int fsh;         // log2 of the fence stride
@@ -193,12 +206,15 @@ struct Read {
 #define HV(R, r, e) ((R).hashv[(r) * HASH_CAP + (e)])
 #define CHW(R, c) ((R).chw + (c) * CF_N)
 
-__device__ __forceinline__ int anc_f(const Read& R, int a, int f) {
+template <class PT>
+__device__ __forceinline__ int anc_f(const ReadT<PT>& R, int a, int f) {
   return R.anc[clampi(a, 0, R.P->A2 - 1) * 4 + f];
 }
 
 // One slot written from the walk's scalars (the same in every lane).
-__device__ void sms_set(Read& R, int slot, int q, int t, int ln, int sc) {
+template <class PT>
+__device__ void sms_set(ReadT<PT>& R, int slot, int q, int t, int ln,
+                        int sc) {
   __syncwarp();
   if (R.lane == 0 && slot >= 0 && slot < S_CAP) {
     SMS(R, 0, slot) = q;
@@ -209,12 +225,14 @@ __device__ void sms_set(Read& R, int slot, int q, int t, int ln, int sc) {
   __syncwarp();
 }
 
-__device__ __forceinline__ int sms_get(const Read& R, int r, int slot) {
+template <class PT>
+__device__ __forceinline__ int sms_get(const ReadT<PT>& R, int r, int slot) {
   return (slot >= 0 && slot < S_CAP) ? SMS(R, r, slot) : (int)0x80000000;
 }
 
 // hashv[r][e] for the HASH_CAP entries, one lane each
-__device__ void build_hashv(Read& R) {
+template <class PT>
+__device__ void build_hashv(ReadT<PT>& R) {
   __syncwarp();
   if (R.lane < HASH_CAP) {
     const int e = R.lane;
@@ -228,7 +246,8 @@ __device__ void build_hashv(Read& R) {
 }
 
 // ---- packed words -----------------------------------------------------------
-__device__ unsigned word16_q(const Read& R, int base) {
+template <class PT>
+__device__ unsigned word16_q(const ReadT<PT>& R, int base) {
   int b = base > 0 ? base : 0;
   int w0 = b >> 4, sh = (b & 15) << 1;
   int i0 = clampi(w0, 0, R.kw - 1), i1 = clampi(w0 + 1, 0, R.kw - 1);
@@ -240,7 +259,8 @@ __device__ unsigned word16_q(const Read& R, int base) {
   return neg >= 16 ? 0u : (v << ((neg < 15 ? neg : 15) << 1));
 }
 
-__device__ unsigned word16_w(const Read& R, int base) {
+template <class PT>
+__device__ unsigned word16_w(const ReadT<PT>& R, int base) {
   int b = base > 0 ? base : 0;
   int w0 = b >> 4, sh = (b & 15) << 1;
   unsigned g0 = R.wj[clampi(w0, 0, 127)];
@@ -253,7 +273,8 @@ __device__ unsigned word16_w(const Read& R, int base) {
 
 // Match-run length: read char qstart +- k vs window char wstart +- k,
 // k < cap (rescore_pl._run_len_lanes for one candidate). One lane.
-__device__ int run_len(const Read& R, int win_len, int qstart, int wstart,
+template <class PT>
+__device__ int run_len(const ReadT<PT>& R, int win_len, int qstart, int wstart,
                        bool forward, int cap) {
   int n = 0;
   bool run = cap > 0;
@@ -292,8 +313,9 @@ __device__ int run_len(const Read& R, int win_len, int qstart, int wstart,
 // 128 words (2048 chars) of reference from char goff (clamped at 0); chars
 // past n_bases replicate the last char, window chars >= bug_zero read 0.
 // Lane l loads words l, l + 32, l + 64, l + 96.
-__device__ void fetch_window(Read& R, int goff, int bug_zero) {
-  const Params* P = R.P;
+template <class PT>
+__device__ void fetch_window(ReadT<PT>& R, int goff, int bug_zero) {
+  const PT* P = R.P;
   int off0 = goff > 0 ? goff : 0;
   int gw0 = off0 >> 4, cb = off0 & 15;
   int r0 = clampi(gw0 >> 7, 0, P->NR - 2);
@@ -306,7 +328,7 @@ __device__ void fetch_window(Read& R, int goff, int bug_zero) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     int l = R.lane + 32 * k;
-    unsigned x = P->ref_words[at + l];
+    unsigned x = shard::ld(P->ref_words, at + l);
     int nv = clampi(
         w32((long long)P->n_bases - w32((long long)base_g + 16 * l)), 0, 16);
     unsigned keep = nv >= 16 ? 0xFFFFFFFFu : ((1u << (2 * nv)) - 1u);
@@ -352,9 +374,10 @@ __device__ int lower_bound(const int* vals, const int* fen, int nfen, int fsh,
 // Append the window's match nodes to sms from slot base_slot; returns the
 // number emitted and ORs the FB_HITS/FB_FCAP/FB_SMS reasons into fb. Probe
 // p (i = 4 + 4p) goes to lane p % 32 of round p / 32.
-__device__ int sdp_match(Read& R, bool forward, int t_len, int t0j, int q_bg,
-                         int q_ed, int t_st, int dslot, int base_slot,
-                         bool is_mid, int& fb) {
+template <class PT>
+__device__ int sdp_match(ReadT<PT>& R, bool forward, int t_len, int t0j,
+                         int q_bg, int q_ed, int t_st, int dslot,
+                         int base_slot, bool is_mid, int& fb) {
   const int lane = R.lane;
   int t_kmer_num = w32((long long)t_len - K9 + 1);
   int qbase = dslot == 1 ? 0 : R.l_read;
@@ -466,7 +489,8 @@ __device__ int sdp_match(Read& R, bool forward, int t_len, int t0j, int q_bg,
 // Slot s goes to lane s % 32. Scanning down from cur - 1, the serial walk
 // stops at the first slot with brk (outside the middle walk): that is the
 // highest such slot, and only the slots above it count.
-__device__ int node_dp(Read& R, int cur, bool is_left, bool is_mid) {
+template <class PT>
+__device__ int node_dp(ReadT<PT>& R, int cur, bool is_left, bool is_mid) {
   int cq = sms_get(R, 0, cur), ct = sms_get(R, 1, cur);
   int cln = sms_get(R, 2, cur);
   int max_q = 0, max_t = 0, min_q = 0, min_t = 0;
@@ -530,7 +554,8 @@ __device__ int node_dp(Read& R, int cur, bool is_left, bool is_mid) {
 
 // ---- middle walk ------------------------------------------------------------
 // Returns the walk score (+10000 domain); updates fb and steps.
-__device__ int run_middle(Read& R, int a, int dslot, int t_glob, int& fb,
+template <class PT>
+__device__ int run_middle(ReadT<PT>& R, int a, int dslot, int t_glob, int& fb,
                           int& steps) {
   int score = 10000;
   while (a >= 0 && fb == 0 && steps < MAX_STEPS) {
@@ -566,8 +591,10 @@ __device__ int run_middle(Read& R, int a, int dslot, int t_glob, int& fb,
 }
 
 // ---- side extension ---------------------------------------------------------
-__device__ int run_side(Read& R, bool is_left, int ci, int dslot, int t_glob,
-                        int t_length, int score_in, int& fb, int& steps) {
+template <class PT>
+__device__ int run_side(ReadT<PT>& R, bool is_left, int ci, int dslot,
+                        int t_glob, int t_length, int score_in, int& fb,
+                        int& steps) {
   int* c = CHW(R, ci);
   int q_anchor = is_left ? c[C_QST] : c[C_QED];
   int t_anchor = is_left ? c[C_TST] : c[C_TED];
@@ -738,7 +765,9 @@ __device__ int run_side(Read& R, bool is_left, int ci, int dslot, int t_glob,
   return total;
 }
 
-__global__ void __launch_bounds__(WARPS * 32) rescore_kernel(Params P) {
+// One read a warp, over either layout of the reference words
+template <class PT>
+__device__ inline void rescore_body(const PT& P) {
   extern __shared__ __align__(16) int smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * WARPS + warp;
@@ -751,7 +780,7 @@ __global__ void __launch_bounds__(WARPS * 32) rescore_kernel(Params P) {
     if (lane < 3) P.flags[b * 3 + lane] = 0;
     return;
   }
-  Read R;
+  ReadT<PT> R;
   R.P = &P;
   R.lane = lane;
   R.n_chains = s[0];
@@ -817,6 +846,18 @@ __global__ void __launch_bounds__(WARPS * 32) rescore_kernel(Params P) {
   }
 }
 
+// K1 over the whole reference words, and over their shards (the argument
+// block stays in the parameter space, __grid_constant__, where the
+// accessor reads a shard's pointer)
+__global__ void __launch_bounds__(WARPS * 32) rescore_kernel(Params P) {
+  rescore_body(P);
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+    rescore_sharded_kernel(const __grid_constant__ ShardedParams P) {
+  rescore_body(P);
+}
+
 // Dynamic shared memory of one block (bytes) and the fence stride; the
 // wrapper passes its own count, and a launch whose count differs, or whose
 // block would not fit, is refused.
@@ -828,6 +869,27 @@ extern "C" int rescore_fence_stride(int A2, int K) {
 }
 
 #ifdef __CUDACC__
+// A launch of `kernel` on P: WARPS reads a block, `smem_bytes` of dynamic
+// shared memory (refused unless it is this file's own count), on `stream`
+// of card `device`, which this library makes current first (the attribute
+// and the launch go to the current device). Returns the CUDA error code.
+template <class PT>
+static int launch(void (*kernel)(PT), const PT& P, int smem_bytes,
+                  int device, void* stream) {
+  if (P.B <= 0) return 0;
+  if (P.A2 <= 0 || P.K <= 0 || P.NR < 2 || smem_bytes > SMEM_MAX ||
+      smem_bytes != rescore_smem_bytes(P.A2, P.K))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(P.B + WARPS - 1) / WARPS, WARPS * 32, smem_bytes,
+           (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rescore_launch(
     const int* scal, const int* chains, const int* anchors, const int* schash,
     const unsigned* codes_pk, const int* rk_vals, const int* rk_pos,
@@ -838,19 +900,35 @@ extern "C" int rescore_launch(
   Params P{scal, chains, anchors, schash, codes_pk, rk_vals, rk_pos,
            ref_words, ref_off, ref_len, chains_out, flags,
            B, A2, nw, K, NR, nref, n_bases, last_char};
-  if (B <= 0) return 0;
-  if (A2 <= 0 || K <= 0 || NR < 2 || smem_bytes > SMEM_MAX ||
-      smem_bytes != rescore_smem_bytes(A2, K))
-    return (int)cudaErrorInvalidValue;
-  // the card of every pointer: the attribute and the launch go to this
-  // library's current device
+  return launch(rescore_kernel, P, smem_bytes, device, stream);
+}
+
+// rescore_launch over the reference words' shards: `ref_words` points to
+// their accessor (a host struct, passed on by value)
+extern "C" int rescore_sharded_launch(
+    const int* scal, const int* chains, const int* anchors, const int* schash,
+    const unsigned* codes_pk, const int* rk_vals, const int* rk_pos,
+    const shard::ShardTab<unsigned>* ref_words, const int* ref_off,
+    const int* ref_len, int* chains_out, int* flags, int B, int A2, int nw,
+    int K, int NR, int nref, int n_bases, int last_char, int smem_bytes,
+    int device, void* stream) {
+  ShardedParams P{scal, chains, anchors, schash, codes_pk, rk_vals, rk_pos,
+                  *ref_words, ref_off, ref_len, chains_out, flags,
+                  B, A2, nw, K, NR, nref, n_bases, last_char};
+  return launch(rescore_sharded_kernel, P, smem_bytes, device, stream);
+}
+
+// Let card `device` load from card `peer` (a shard's) in this library's
+// kernels: this library links its own CUDA runtime, so it enables the
+// access itself. 0 once enabled (also where it already was).
+extern "C" int rescore_enable_peer(int device, int peer) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(
-      rescore_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  rescore_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem_bytes,
-                   (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (int)e;
 }
 #endif

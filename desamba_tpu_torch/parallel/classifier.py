@@ -13,7 +13,12 @@ contract with ``DeviceClassifier`` (which this subclasses):
          ranges over ``idx``: each shard answers the probes it owns and the
          answers are OR-merged (``mesh.bloom_rows``). The tables read
          inside the kernels (FM blocks, hash13, the reference) are
-         replicated on every dp row.
+         replicated on every dp row, or, with ``shard_full=True``, cut by
+         row range over ``idx`` (``sharded.py``): dp row d's ladder and
+         rescore kernels, on ``devices[d, 0]``, read every gather table
+         from its shards on ``devices[d, i]`` (``ShardTab``, peer loads
+         where the cards differ), as the JAX package answers each gather
+         with an owner mask and a ``psum``.
 
   - batch rows and ladder lanes are power-of-two buckets, so a
     power-of-two ``n_dp`` divides them;
@@ -27,9 +32,9 @@ contract with ``DeviceClassifier`` (which this subclasses):
 
 The merges (concatenations on the first device, the OR of the existence
 answers) are PyTorch copies and sums between the kernels, never inside
-one. ``shard_full=True`` (every gather table split by row range over
-``idx``, the JAX package's ``parallel/sharded.py``) needs kernels that
-gather from row-range shards, and raises until they exist.
+one. With ``shard_full`` the base ``DeviceClassifier`` still holds the
+whole index on ``devices[0, 0]``, as the JAX one does: its host prep and
+the M3 sub-batch use it.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from ..engine.device import rescore as dr
 from ..engine.device import rescore_pl as drp
 from ..engine.device.classifier import A_CAP, M_CAP, DeviceClassifier
 from ..engine.device.ladder import IV_HOT, run_fast_ladder, run_slow_ladder
-from .mesh import bloom_rows, make_mesh, shard_index
+from .mesh import bloom_rows, make_mesh, require_peer_access, shard_index
 
 
 class MeshClassifier(DeviceClassifier):
@@ -49,13 +54,11 @@ class MeshClassifier(DeviceClassifier):
                  shard_full: bool = False):
         """``mesh`` defaults to every CUDA device over ``dp``. The
         classifier's own device (its host uploads, the M3 sub-batch and
-        the merged outputs) is ``mesh.devices[0, 0]``."""
-        if shard_full:
-            raise NotImplementedError(
-                "MeshClassifier(shard_full=True): every gather table split "
-                "by row range over idx needs kernels that gather from the "
-                "shards; it is the next slice of the port (ROADMAP.md, "
-                "Queue 1)")
+        the merged outputs) is ``mesh.devices[0, 0]``. ``shard_full=True``
+        cuts every large gather table by row range over ``idx`` (at most
+        ``sharded.MAX_IDX`` shards); on distinct cards each dp row's first
+        card must reach its shards' cards by peer access, else this
+        raises."""
         if mesh is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("MeshClassifier: no CUDA device is "
@@ -65,15 +68,37 @@ class MeshClassifier(DeviceClassifier):
         if n_dp & (n_dp - 1):
             raise ValueError(f"dp size {n_dp} must be a power of two "
                              f"(bucketed shapes divide only then)")
+        if shard_full:
+            from .sharded import MAX_IDX
+
+            if mesh.shape["idx"] > MAX_IDX:
+                raise ValueError(f"shard_full: {mesh.shape['idx']} shards, "
+                                 f"the kernels read at most {MAX_IDX}")
+            for d in range(n_dp):
+                require_peer_access(mesh.devices[d, 0], mesh.devices[d])
         super().__init__(idx, opts, device=mesh.devices[0, 0],
                          batch_size=batch_size)
         self.mesh = mesh
         self.n_dp = n_dp
-        self.placed = shard_index(mesh, self.dix)
+        self.shard_full = shard_full
+        self.placed = shard_index(mesh, self.dix, shard_full=shard_full)
+        words = self._row_words()
         # each dp row's (device, index, IndexRefs, reference words)
-        self._rows = [(t.device, t, t.index_refs(),
-                       self.ref_words.to(t.device))
-                      for t in self.placed["tables"]]
+        self._rows = [(t.device, t, t.index_refs(), words[d])
+                      for d, t in enumerate(self.placed["tables"])]
+
+    def _row_words(self):
+        """Each dp row's reference words (the rescore kernel's table): a
+        copy on its first device, or (``shard_full``) its row-aligned
+        shards."""
+        tables = self.placed["tables"]
+        if not self.shard_full:
+            return [self.ref_words.to(t.device) for t in tables]
+        from .sharded import ShardedArray, shard_table
+
+        shards, gshape = shard_table(self.mesh, self.ref_words)
+        return [ShardedArray(shards[d], gshape, t.device)
+                for d, t in enumerate(tables)]
 
     def _split(self, n, k=None):
         """Row ranges of ``n`` rows over ``k`` (default ``n_dp``) dp rows:

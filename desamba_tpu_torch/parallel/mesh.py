@@ -11,7 +11,9 @@ pthreads over reads with the index in shared memory
     ``n_idx`` byte ranges; shard i lives on ``devices[d, i]`` of every dp
     row, answers the probes whose bytes it owns, and the answers are
     OR-merged (summed) on the row's first device. The other tables are
-    replicated on every dp row's first device.
+    replicated on every dp row's first device, or, with ``shard_full``,
+    cut by row range over ``idx`` too (``sharded.py``) but for the few
+    that stay whole.
 
 Like ``jax.sharding.Mesh``, one process drives the whole grid: the merges
 are PyTorch copies and sums between the kernels, never inside one. A
@@ -83,6 +85,23 @@ def make_mesh(n_dp: int, n_idx: int = 1, devices=None) -> Mesh:
     return Mesh(grid)
 
 
+def require_peer_access(home, devices):
+    """Raise unless ``home`` can load from every other card of ``devices``
+    by peer access (the sharded kernels' loads from their shards): no
+    table is copied to ``home`` in its place."""
+    home = _canonical(home)
+    for dev in devices:
+        dev = _canonical(dev)
+        if dev == home:
+            continue
+        if dev.type != "cuda" or home.type != "cuda":
+            raise ValueError(f"shards on {dev} for a kernel on {home}: one "
+                             f"device type per dp row")
+        if not torch.cuda.can_device_access_peer(home.index, dev.index):
+            raise RuntimeError(f"{home} has no peer access to {dev}: its "
+                               f"kernels cannot read the shards there")
+
+
 def replicate(dix, device):
     """``dix`` (a ``DeviceIndex``) on ``device``: ``dix`` itself where it
     is there already, else a copy of every table."""
@@ -95,7 +114,7 @@ def replicate(dix, device):
     return dataclasses.replace(dix, device=device, **tensors)
 
 
-def shard_index(mesh: Mesh, dix) -> dict:
+def shard_index(mesh: Mesh, dix, shard_full: bool = False) -> dict:
     """Place a ``DeviceIndex`` on the mesh.
 
     Returns {"tables": [the index on ``devices[d, 0]``, for each dp row d],
@@ -103,10 +122,16 @@ def shard_index(mesh: Mesh, dix) -> dict:
     for each i] for each d]}. The existence tables are cut into ``n_idx``
     equal byte ranges (a length that ``n_idx`` does not divide raises); a
     range is a view of the table, so the ranges concatenate back to it
-    and share its storage wherever the device repeats."""
+    and share its storage wherever the device repeats.
+
+    ``shard_full``: dp row d's index holds whole, on ``devices[d, 0]``,
+    only the tables that stay whole (rank, ref_off, ref_len_arr, q_mem,
+    q_lv); every table of ``sharded.SHARDED_DIX_FIELDS`` is a
+    ``ShardedArray`` over ``sharded.shard_table``'s shards (the FM blocks
+    its 9-word ``ShardedRows``), and the existence tables are their byte
+    ranges."""
     n_dp, n_idx = mesh.devices.shape
-    placed = {"tables": [replicate(dix, mesh.devices[d, 0])
-                         for d in range(n_dp)]}
+    placed = {}
     for name in ("ekmer0", "ekmer1"):
         tab = getattr(dix, name)
         if tab.dim() != 1 or tab.shape[0] % n_idx:
@@ -115,6 +140,29 @@ def shard_index(mesh: Mesh, dix) -> dict:
         span = tab.shape[0] // n_idx
         placed[name] = [[tab[i * span:(i + 1) * span].to(mesh.devices[d, i])
                          for i in range(n_idx)] for d in range(n_dp)]
+    if not shard_full:
+        placed["tables"] = [replicate(dix, mesh.devices[d, 0])
+                            for d in range(n_dp)]
+        return placed
+    from .sharded import SHARDED_DIX_FIELDS, ShardedArray, shard_table
+
+    cut = {name: shard_table(mesh, getattr(dix, name))
+           for name in sorted(SHARDED_DIX_FIELDS)}
+    placed["tables"] = []
+    for d in range(n_dp):
+        home = _canonical(mesh.devices[d, 0])
+        kw = {}
+        for f in dataclasses.fields(dix):
+            v = getattr(dix, f.name)
+            if f.name in cut:
+                shards, gshape = cut[f.name]
+                kw[f.name] = ShardedArray(shards[d], gshape, home)
+            elif f.name in placed:
+                kw[f.name] = ShardedArray(placed[f.name][d], v.shape, home)
+            elif isinstance(v, torch.Tensor):
+                kw[f.name] = v.to(home)
+        kw["fm_blocks"] = kw["fm_blocks"].as_rows(dix.fm_blocks.shape[1])
+        placed["tables"].append(dataclasses.replace(dix, device=home, **kw))
     return placed
 
 

@@ -34,11 +34,12 @@ def test_port_never_imports_jax():
     mods, bad = (out.stdout + "\n").split("\n")[:2]
     assert bad == "", bad
     mods = set(mods.split())
-    assert len(mods) >= 47   # device, gold, index, io, kernels and tools
+    assert len(mods) >= 48   # device, gold, index, io, kernels and tools
     assert {"desamba_tpu_torch.cli", "desamba_tpu_torch.io.prefetch",
             "desamba_tpu_torch.index.compat",
             "desamba_tpu_torch.analysis.taxonomy",
-            "desamba_tpu_torch.analysis.evaluate"} <= mods
+            "desamba_tpu_torch.analysis.evaluate",
+            "desamba_tpu_torch.parallel.sharded"} <= mods
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
@@ -91,6 +92,21 @@ def test_restated_constants_match_jax(port_mod, jax_mod, names):
     j = importlib.import_module(f"desamba_tpu.engine.device.{jax_mod}")
     for n in names:
         assert getattr(p, n) == getattr(j, n), n
+
+
+def test_sharded_layout_restates_jax():
+    """parallel/sharded.py keeps its own copies of the JAX layout's row
+    alignment and sharded fields."""
+    from desamba_tpu.parallel import sharded as j
+    from desamba_tpu_torch.parallel import sharded as p
+
+    assert p.ROW_ALIGN == j.ROW_ALIGN
+    assert p.SHARDED_IXR_FIELDS == j.SHARDED_IXR_FIELDS
+    for n in (1, 2, 4):
+        a = np.arange(9223, dtype=np.int32)
+        pf, ps = p._flat_pad(torch.from_numpy(a), n)
+        jf, js = j._flat_pad(a, n)
+        assert ps == js and np.array_equal(pf.numpy(), jf)
 
 
 def test_u32_travels_as_int32_bit_patterns():

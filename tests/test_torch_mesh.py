@@ -164,8 +164,8 @@ def test_layouts_not_taken_raise(small_my_index):
     idx = port_index(small_my_index)
     with pytest.raises(ValueError, match="power of two"):
         MeshClassifier(idx, None, mesh=make_mesh(3, 1, devices=["cpu"] * 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        MeshClassifier(idx, None, mesh=make_mesh(2, 1, devices=["cpu"] * 2),
+    with pytest.raises(ValueError, match="at most 8"):
+        MeshClassifier(idx, None, mesh=make_mesh(1, 9, devices=["cpu"] * 9),
                        shard_full=True)
     with pytest.raises(ValueError, match="needs 4 devices"):
         make_mesh(2, 2, devices=["cpu"] * 3)

@@ -11,9 +11,11 @@ errors) whose filter depends on whether the stream state has reached 510.
 One process's state stays below 510 there; the longest read before slice
 1 is 600 bp."""
 import os
+import random
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,9 +31,65 @@ N_OPEN = 30        # short reads that open slice 1
 
 
 def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free localhost port below the kernel's ephemeral range, found by
+    binding it. A port of that range, released for the worker to bind, can
+    be handed in between to any outgoing connection on the host (the gloo
+    pairs and the coordinator clients of another multi-process test running
+    beside this one); a port below it is handed only to an explicit bind."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError):
+        low = 32768
+    rng = random.Random(os.getpid() * 1000003 + time.monotonic_ns())
+    for _ in range(100):
+        port = rng.randrange(max(1024, low - 8192), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free localhost port below the ephemeral range")
+
+
+def _in_use(out):
+    out = out.lower()
+    return "eaddrinuse" in out or "address already in use" in out
+
+
+def _run_workers(argv, tmp_path, timeout=300, attempts=3):
+    """The two worker processes (``argv(k, port)``) on a free port, waited
+    for together; where one fails to bind the port (another process bound
+    it first), both stop and start again on another port. Returns (return
+    codes, outputs) of the last attempt."""
+    for attempt in range(attempts):
+        port = _free_port()
+        logs = [tmp_path / f"worker{k}.{attempt}.log" for k in range(2)]
+        procs = []
+        for k in range(2):
+            with open(logs[k], "w") as f:
+                procs.append(subprocess.Popen(
+                    argv(k, port), cwd=REPO, env=dict(os.environ), stdout=f,
+                    stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if time.monotonic() > deadline or any(
+                        p.poll() not in (None, 0) and _in_use(log.read_text())
+                        for p, log in zip(procs, logs)):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = [log.read_text() for log in logs]
+        codes = [p.returncode for p in procs]
+        if codes == [0, 0] or not any(map(_in_use, outs)):
+            break
+    return codes, outs
 
 
 def _corpus48(idx):
@@ -115,28 +173,15 @@ def test_two_process_classify_equals_one_process(small_my_index, tmp_path):
                       idx.ref_name, gold.opts) for r in recs)
 
     out = tmp_path / "mh.sam"
-    port = _free_port()
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-m", "desamba_tpu_torch.tools.multihost_worker",
-             "--coordinator", f"localhost:{port}", "--num-processes", "2",
-             "--process-id", str(k), "--index", str(idx_dir),
-             "--reads", str(fq), "--out", str(out), "--device", "cpu",
-             "--local-devices", "2", "--n-idx", "1"],
-            cwd=REPO, env=dict(os.environ), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        for k in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for k, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {k} failed:\n{o[-4000:]}"
+    codes, outs = _run_workers(
+        lambda k, port: [
+            sys.executable, "-m", "desamba_tpu_torch.tools.multihost_worker",
+            "--coordinator", f"localhost:{port}", "--num-processes", "2",
+            "--process-id", str(k), "--index", str(idx_dir),
+            "--reads", str(fq), "--out", str(out), "--device", "cpu",
+            "--local-devices", "2", "--n-idx", "1"], tmp_path)
+    for k, (c, o) in enumerate(zip(codes, outs)):
+        assert c == 0, f"process {k} failed:\n{o[-4000:]}"
     got = _by_read(out.read_text())
     want = _by_read(exp)
     differ = [n for n in want if got.get(n) != want[n]]
