@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (desamba_tpu_torch) on one card.
 
     python3 chip_smoke.py [--seed 0] [--mbases 32] [--reads 4096] \
-        [--depths 1,2,3]
+        [--depths 1,2,3] [--parent DIR]
 
 Run from the root of a checkout, on a machine with an NVIDIA card, nvcc
 and a C compiler. Phases:
@@ -146,14 +146,24 @@ and a C compiler. Phases:
    hold a shared-memory load (K6.2, K6.3) or a multiply-add (K5.c) and
    neither a barrier nor a device load; and K6.2's and K6.3's rates of
    shared-memory loads against the card's 33.45 TB/s (a time under that
-   floor fails the run: it would mean gathers were folded away);
+   floor fails the run: it would mean gathers were folded away); K4.2's
+   ``egather_kernel``: ``ptxas``'s line, its SASS mix (its row is staged
+   by cp.async copies, LDGSTS, behind one barrier, or the run fails) and
+   the launch alone in a replayed CUDA graph,
+   bit-equal to the plain version, beside the kernel of the checkout at
+   ``--parent`` (built from its ``micro.cu``), in turns;
 8. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
    seeded (R, 128) tiles with the edge cases of the CPU test, bit-equal to
    the plain versions;
 9. capability probes: the entry point ``desamba_tpu_torch.tools.caps``
    (K7), every probe OK against its numpy expression (it raises otherwise)
    and bit-equal to its plain version; ``ptxas``'s line and the SASS load
-   and store counts of K7.3's ``p_s2``.
+   and store counts of K7.3's ``p_s2``; ``ptxas``'s line and the SASS mix
+   of each of K7.1's twelve bodies, whose global loads must all come
+   before the first store; and each of K7.1's thirteen probes launched
+   alone in a replayed CUDA graph, bit-equal to the entry point's result,
+   beside the kernel of the checkout at ``--parent`` (built from its
+   ``caps.cu``), in turns.
 
 A line then lists every kernel slower than its library call in a graph
 (printed only: a slow kernel is a finding, not a failure).
@@ -176,8 +186,14 @@ needs on these inputs over the card's int32 rate (the constants below);
 ``rescore_bytes``, ``ladder_bytes``, ``chain_bytes``, ``cmpcount_ops`` and
 ``micro.sites`` say what is counted. A kernel or
 library call faster than its bound fails the run, since the bound would
-not be one. Any mismatch or exception exits non-zero. The line before the
-last is the kernels' JSON record; the last line is the device record.
+not be one. Each record also has its launches a call
+(``launches_per_call``: the launches its ``ms`` sums), ``floor_ms``, the
+larger of its bound and those launches at K6.0's time a launch in a
+replayed CUDA graph in this run (a launch costs that whatever it does),
+and ``floor_share``, ``floor_ms`` over ``ms``; a line names every record
+under half of its floor. No check rests on the floor: K6.0's time moves
+between runs. Any mismatch or exception exits non-zero. The line before
+the last is the kernels' JSON record; the last line is the device record.
 """
 from __future__ import annotations
 
@@ -392,6 +408,71 @@ def sass_loops(so, kernel):
             lo = int(target.group(1), 16)
             loops.append([o for a, o, _ in ins if lo <= a <= addr])
     return sorted(loops, key=len)
+
+
+# the sources whose kernels phases 7 and 9 time against another commit's
+# (--parent): K4.2 in micro.cu, K7.1 in caps.cu
+PARENT_SOURCES = ("micro.cu", "caps.cu")
+
+
+def start_parent_build(build, root, src):
+    """Start nvcc, with this tree's flags, for kernel source ``src`` of the
+    checkout at ``root``: (Popen, the library's path)."""
+    out_dir = os.path.join(build.BUILD_DIR, "parent")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, src[:-3] + ".so")
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", so,
+         os.path.join(root, "desamba_tpu_torch", "kernels", src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def finish_parent_build(src, proc, so):
+    """(the loaded library, nvcc's output) of a build started by
+    ``start_parent_build``; raises where nvcc failed."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's {src}:\n{out}")
+    return ctypes.CDLL(so), out
+
+
+def lib_launch(fn, *args):
+    """A launcher of a kernel library called alone on fixed arguments
+    (tensors become pointers, the current stream is appended when it is
+    called, so that a CUDA graph captures it): not counted as a launch."""
+    import torch
+
+    raw = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+
+    def launch():
+        rc = fn(*raw, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
+    return launch
+
+
+def in_turns(fns, device):
+    """{name: ms} of each launch in ``fns`` ({name: fn}) in a replayed CUDA
+    graph of 200 calls, taken in turns (the order, then the order reversed,
+    three times) and averaged, so that a drift of the card's clock falls on
+    all alike."""
+    from desamba_tpu_torch.tools import micro
+
+    names = list(fns)
+    got = {k: [] for k in names}
+    for k in (names + names[::-1]) * 3:
+        got[k].append(micro.graph_ms(fns[k], device, 200))
+    return {k: sum(v) / len(v) for k, v in got.items()}
+
+
+def loads_before_stores(ins):
+    """Whether every global load (LDG) of a kernel's SASS comes before its
+    first global store (STG)."""
+    ops = [op for _, op, _ in ins]
+    ldg = [i for i, op in enumerate(ops) if op == "LDG"]
+    stg = [i for i, op in enumerate(ops) if op == "STG"]
+    return bool(ldg and stg) and max(ldg) < min(stg)
 
 
 def bound(nbytes, ops):
@@ -617,6 +698,11 @@ def main():
     ap.add_argument("--depths", default="",
                     help="comma-separated DESAMBA_PIPE_DEPTH values to time "
                          "classify_reads at, in this order, after phase 3")
+    ap.add_argument("--parent", default="",
+                    help="root of a checkout of another commit (as "
+                         "unpacked by git archive): phases 7 and 9 also "
+                         "build its micro.cu and caps.cu and time its K4.2 "
+                         "and K7.1 kernels beside this tree's, in turns")
     args = ap.parse_args()
 
     import torch
@@ -652,7 +738,11 @@ def main():
     log(card)
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
+    parent_procs = {src: start_parent_build(build, args.parent, src)
+                    for src in PARENT_SOURCES} if args.parent else {}
     built = build.build_all()
+    parent = {src: finish_parent_build(src, *p)
+              for src, p in parent_procs.items()}
     for src, out in built.items():
         regs = [ln.strip() for ln in out.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -1357,6 +1447,7 @@ def main():
             "source": f"desamba_tpu_torch/kernels/{src}",
             "replaces": f"desamba_tpu/{line}",
             "launches": sh14_counts[name],
+            "launches_per_call": 1 if stage == "rescore" else len(got),
             "max_abs_err": max(r["err"] for r in got),
             "ms": ms, "flat_ms": flat_ms, "plain_ms": got[0]["plain_ms"],
             "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -1447,7 +1538,7 @@ def main():
             "name": "rescore", "route": "cuda",
             "source": "desamba_tpu_torch/kernels/rescore.cu",
             "replaces": "desamba_tpu/engine/device/rescore_pl.py:1101",
-            "launches": launches["rescore"],
+            "launches": launches["rescore"], "launches_per_call": 1,
             "max_abs_err": max(r["err"] for r in recs + long_recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
@@ -1547,7 +1638,7 @@ def main():
             "name": name, "route": "cuda",
             "source": "desamba_tpu_torch/kernels/ladder.cu",
             "replaces": f"desamba_tpu/engine/device/ladder.py:{line}",
-            "launches": launches[name],
+            "launches": launches[name], "launches_per_call": len(checked),
             "max_abs_err": max(r["err"] for r in checked + [forced]),
             "ms": sum(r["ms"] for r in checked),
             "wrapper_ms": sum(r["wrap_ms"] for r in checked),
@@ -1656,7 +1747,7 @@ def main():
             "name": name, "route": "cuda",
             "source": "desamba_tpu_torch/kernels/chain.cu",
             "replaces": f"desamba_tpu/engine/device/chain.py:{line}",
-            "launches": launches[name],
+            "launches": launches[name], "launches_per_call": len(checked),
             "max_abs_err": max(r["err"] for r in checked),
             "ms": sum(r["ms"] for r in checked),
             "events_ms": sum(r["ev_ms"] for r in checked),
@@ -1733,6 +1824,7 @@ def main():
             "name": name, "route": "cuda",
             "source": "desamba_tpu_torch/kernels/cmpcount.cu",
             "replaces": replaces, "launches": r["launches"],
+            "launches_per_call": 1,
             "max_abs_err": max(err, edge_err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "library_eager_ms": eager_lib_ms})
@@ -1744,9 +1836,10 @@ def main():
         return int((a.long() - b.long()).abs().max())
 
     def small_record(name, source, replaces, launched, err, ms, plain_ms,
-                     lib, nbytes, ops):
+                     lib, nbytes, ops, per_call=1):
         """One kernel's record; ``lib`` is its library call's (graph ms,
-        eager ms), or None where there is none."""
+        eager ms), or None where there is none; ``ms`` sums ``per_call``
+        launches."""
         bms, by = bound(nbytes, ops)
         lib_ms, lib_eager = lib or (None, None)
         lib_txt = ("none" if lib is None else
@@ -1766,7 +1859,8 @@ def main():
                             f"beat the bound {bms} ms")
         records.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launched, "max_abs_err": err,
+            "replaces": replaces, "launches": launched,
+            "launches_per_call": per_call, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "library_eager_ms": lib_eager})
 
@@ -1820,7 +1914,6 @@ def main():
         lambda: micro.colgather(x3["tab"], x3["idxr"], 1, False), dev0, 50)
     log(f"K6.3 with one trip: {one_ms:.5f} ms (staging the columns, the "
         f"launch and the zeroed output)")
-    del x3
     micro_so = build._lib_path("micro.cu")
     for kernel, want in (("lgather_kernel", "LDS"), ("rgather_kernel", "LDS"),
                          ("oneprog_kernel", "IMAD")):
@@ -1838,7 +1931,50 @@ def main():
                         for lp in loops)
             + "; the longest: "
             + ", ".join(f"{n} {op}" for op, n in mix.most_common()))
-    del mres
+    # K4.2 (egather_kernel): its registers, its SASS mix (the row staged by
+    # cp.async, LDGSTS, behind one barrier) and the launch alone in a
+    # graph, beside the parent's kernel (--parent) in turns, each bit-equal
+    # to the plain version
+    log(f"ptxas egather_kernel: "
+        f"{ptxas_lines(built['micro.cu'], 'egather_kernel')}")
+    mix = collections.Counter(op for _, op, _ in sass(micro_so,
+                                                      "egather_kernel")
+                              if op != "NOP")
+    log("SASS egather_kernel: " + ", ".join(
+        f"{n} {op}" for op, n in mix.most_common()))
+    if not mix["LDGSTS"] or mix["BAR"] != 1:
+        failures.append(f"egather_kernel: {mix['LDGSTS']} LDGSTS and "
+                        f"{mix['BAR']} BAR in its SASS, not cp.async copies "
+                        f"behind one barrier")
+    tab2, idx2, reps = x3["tab2"], x3["idx2"], micro.FULL["REPK"]
+    (eb, ek), en = tab2.shape, idx2.shape[1]
+    exp = micro.egather_plain(tab2, idx2, reps)
+    mlib = build.micro_lib()
+    eg_libs = {"change": mlib.micro_egather}
+    if parent:
+        fn = parent["micro.cu"][0].micro_egather
+        fn.argtypes, fn.restype = mlib.micro_egather.argtypes, ctypes.c_int
+        eg_libs["parent"] = fn
+        log(f"ptxas egather_kernel (parent): "
+            f"{ptxas_lines(parent['micro.cu'][1], 'egather_kernel')}")
+    eg_out = {k: torch.empty_like(idx2) for k in eg_libs}
+    eg_fns = {k: lib_launch(f, tab2, idx2, eg_out[k], eb, ek, en, reps)
+              for k, f in eg_libs.items()}
+    for f in eg_fns.values():
+        f()
+    torch.cuda.synchronize()
+    eg_err = {k: max_err(o, exp) for k, o in eg_out.items()}
+    eg_ms = in_turns(eg_fns, dev0)
+    log(f"K4.2 the launch alone in a graph, in turns on {card}: "
+        + ", ".join(f"{k} {v:.5f} ms (max_abs_err {eg_err[k]})"
+                    for k, v in eg_ms.items()))
+    if max(eg_err.values()):
+        failures.append(f"K4.2: a kernel differs from its plain version: "
+                        f"{eg_err}")
+    rec = next(r for r in records if r["name"] == "micro_egather")
+    rec.update(alone_ms=eg_ms["change"], parent_ms=eg_ms.get("parent"))
+    floor_unit = mres["K6.0"]["graph_ms"]
+    del mres, x3, tab2, idx2, exp, eg_out, eg_fns
     torch.cuda.empty_cache()
 
     # ---- 8. tile helpers (K2) -----------------------------------------------
@@ -1870,7 +2006,7 @@ def main():
         ops += c["out"].numel()
     small_record("plops", "desamba_tpu_torch/kernels/plops.cu",
                  "tests/test_plops.py:16", sum(by_body.values()), err, ms,
-                 plain_ms, None, nbytes, ops)
+                 plain_ms, None, nbytes, ops, len(first))
 
     # ---- 9. capability probes (K7) ------------------------------------------
     for f in caps.WRAPPERS:
@@ -1905,7 +2041,7 @@ def main():
             failures.append(f"{name}: {len(probes)} probes ran")
         small_record(name, "desamba_tpu_torch/kernels/caps.cu", site,
                      by_site[wrapper.__name__], err, ms, plain_ms, lib,
-                     nbytes, ops)
+                     nbytes, ops, len(probes))
     # p_s2 (K7.3): its loads must not wait for its stores
     caps_so = build._lib_path("caps.cu")
     mix = collections.Counter(op for _, op, _ in sass(caps_so, "p_s2")
@@ -1913,6 +2049,54 @@ def main():
     log(f"ptxas p_s2: {ptxas_lines(built['caps.cu'], 'p_s2')}; SASS: "
         f"{mix['LDG']} LDG, {mix['STG']} STG, {sum(mix.values())} "
         f"instructions besides padding")
+
+    # K7.1's twelve bodies: registers, and every global load of the tile's
+    # rows before the first store
+    call_kernels = {p[0]: p[1] for p in caps.CALL_PROBES}
+    for k in dict.fromkeys(call_kernels.values()):
+        ins = sass(caps_so, f"p_{k}")
+        mix = collections.Counter(op for _, op, _ in ins if op != "NOP")
+        ordered = loads_before_stores(ins)
+        log(f"ptxas p_{k}: {ptxas_lines(built['caps.cu'], f'p_{k}')}; SASS: "
+            f"{mix['LDG']} LDG, {mix['STG']} STG, {mix['BAR']} BAR, "
+            f"{mix['LDS']} LDS, {sum(mix.values())} instructions besides "
+            f"padding; every LDG before the first STG: {ordered}")
+        if not ordered:
+            failures.append(f"p_{k}: a global load after the first store")
+    # the thirteen probes launched alone in a graph, beside the parent's
+    # kernels (--parent) in turns
+    clib = build.caps_lib()
+    pcaps = None
+    if parent:
+        pcaps = parent["caps.cu"][0].caps_launch
+        pcaps.argtypes, pcaps.restype = clib.caps_launch.argtypes, ctypes.c_int
+    k71 = collections.defaultdict(float)
+    for name, r in cres.items():
+        if r["site"] != "tools/pallas_caps.py:36":
+            continue
+        probe = caps.KERNELS.index(call_kernels[name])
+        a = r["inputs"][0]
+        b = r["inputs"][1] if len(r["inputs"]) > 1 else a
+        fns, outs = {}, {}
+        for k, f in (("change", clib.caps_launch), ("parent", pcaps)):
+            if f is not None:
+                outs[k] = torch.empty_like(r["out"])
+                fns[k] = lib_launch(f, probe, a, b, outs[k], a.shape[0])
+                fns[k]()
+        torch.cuda.synchronize()
+        errs = {k: max_err(o, r["out"]) for k, o in outs.items()}
+        t = in_turns(fns, dev0)
+        for k, v in t.items():
+            k71[k] += v
+        log(f"K7.1 {name} (p_{call_kernels[name]}), the launch alone in a "
+            f"graph: " + ", ".join(f"{k} {v:.5f} ms (max_abs_err "
+                                   f"{errs[k]})" for k, v in t.items()))
+        if max(errs.values()):
+            failures.append(f"K7.1 {name}: a kernel differs: {errs}")
+    log(f"K7.1, the thirteen probes summed, the launch alone in a graph on "
+        f"{card}: " + ", ".join(f"{k} {v:.5f} ms" for k, v in k71.items()))
+    rec = next(r for r in records if r["name"] == "caps_call")
+    rec.update(alone_ms=k71["change"], parent_ms=k71.get("parent"))
 
     slower = [f"{r['name']} ({r['ms']:.5f} ms against {r['library_ms']:.5f})"
               for r in records
@@ -1922,6 +2106,16 @@ def main():
     records += sharded_records
     if len(records) != 31:
         failures.append(f"{len(records)} kernel records, not 31")
+    # the least time of each record's calls: its roofline bound, or its
+    # launches at K6.0's time a launch in a graph, whichever is larger
+    for r in records:
+        r["floor_ms"] = max(r["bound_ms"],
+                            r["launches_per_call"] * floor_unit)
+        r["floor_share"] = r["floor_ms"] / r["ms"]
+    log(f"records under half of their floor_ms (the larger of bound_ms and "
+        f"the launches a call x K6.0's {floor_unit:.5f} ms): " + (", ".join(
+            f"{r['name']} ({r['floor_share']:.3f} of {r['floor_ms']:.5f} "
+            f"ms)" for r in records if r["floor_share"] < 0.5) or "none"))
     log(json.dumps({"kernels": records}))
     if failures:
         for f in failures:

@@ -86,8 +86,20 @@
 //   4,352 sectors, 17.8 MB from L2), a few microseconds not overlapped
 //   with the trips. Every trip's gather is a load from shared memory:
 //   nothing is folded by the column's period.
-// - rowgather/egather: a gather is native here, one load per thread;
-//   egather stages its table rows in shared memory.
+// - egather_kernel (K4.2): 4,096 outputs, each the sum of an 80-byte
+//   window of its 16-KB table row; the whole 128-KB table stays in L2
+//   across calls. What bounds it is the launch and its chain of dependent
+//   loads, not bytes. Where one block a table row (8 blocks) loaded its row
+//   into shared memory before it loaded an index, a thread's chain was the
+//   strided staging loop, a barrier, then its index, then its window. Here
+//   the row's 16-byte words go by cp.async into shared memory of 4 blocks
+//   a row (32 blocks of 128 threads, a thread an output) while each thread
+//   loads its index: one round trip for both, one barrier, then the window
+//   from shared memory. The other candidate, a group of 8 threads an
+//   output loading its window straight from L2 with no staging, pays two
+//   dependent round trips (the index, then the window) and ran 1.06x and
+//   1.08x slower in two runs on the card (PERF.md).
+// - rowgather: a gather is native here, one load per thread.
 // - gridstep_kernel: one block per TPU program, so its time over the grid
 //   is the card's cost of scheduling a block; with one block it is the
 //   empty kernel, the launch floor.
@@ -118,10 +130,13 @@
 // operations and L2 or shared-memory loads. None is near the card's memory
 // rate.
 #include <cuda_runtime.h>
+#ifdef __CUDACC__
+#include <cuda_pipeline.h>
+#endif
 
 #define RW 128   // row width (lanes) of every table
 
-// The three kernels below (and their helpers) also compile as host C++
+// The four kernels below (and their helpers) also compile as host C++
 // (tests/cuda_host/micro_emu.cpp runs them over block_emu.h); the rest of
 // the file needs nvcc (__CUDACC__).
 
@@ -323,8 +338,48 @@ __global__ void __launch_bounds__(OP_THREADS)
     out[w] = (int)((unsigned)x[w] + pb[0]);
 }
 
+// out[b, n] = sum_{r < reps} tab[b, (idx[b, n] + r) & (ek - 1)]. Grid
+// (eb, en / EG_THREADS): block (b, k) takes outputs k * EG_THREADS ... of
+// row b, a thread an output. Each thread loads its index first; meanwhile
+// the block stages row b in shared memory by asynchronous copies (cp.async,
+// 16 bytes each where the row is whole 16-byte words, else 4), so the
+// index and the row come in one round trip; after one barrier each thread
+// sums its window from shared memory.
+#define EG_THREADS 128
+#define EG_MAX_EK 12288   // words of a staged row: 48 KB of shared memory
+
+static inline bool egather_args_ok(int eb, int ek, int en, int reps) {
+  return eb > 0 && en > 0 && pow2(ek) && ek <= EG_MAX_EK && reps >= 0 &&
+         (en + EG_THREADS - 1) / EG_THREADS <= 65535;
+}
+
+__global__ void __launch_bounds__(EG_THREADS)
+    egather_kernel(const int* __restrict__ tab, const int* __restrict__ idx,
+                   int* __restrict__ out, int ek, int en, int reps,
+                   int wide) {
+  extern __shared__ __align__(16) int s_eg[];
+  const int b = blockIdx.x, n = blockIdx.y * blockDim.x + threadIdx.x;
+  const unsigned base =
+      n < en ? (unsigned)__ldg(idx + (size_t)b * en + n) : 0u;
+  const int* row = tab + (size_t)b * ek;
+  if (wide) {
+    for (int i = threadIdx.x; i < ek / 4; i += blockDim.x)
+      __pipeline_memcpy_async((int4*)s_eg + i, (const int4*)row + i, 16);
+  } else {
+    for (int i = threadIdx.x; i < ek; i += blockDim.x)
+      __pipeline_memcpy_async(s_eg + i, row + i, 4);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (n >= en) return;
+  unsigned acc = 0;
+  for (int r = 0; r < reps; ++r)
+    acc += (unsigned)s_eg[(base + (unsigned)r) & (unsigned)(ek - 1)];
+  out[(size_t)b * en + n] = (int)acc;
+}
+
 #ifdef __CUDACC__
-#include <cuda_pipeline.h>
 
 #define OP_SMEM ((2 * OP_THREADS + 1) * sizeof(unsigned))
 
@@ -341,26 +396,6 @@ __global__ void rowgather_kernel(const int* __restrict__ tab,
     acc += (unsigned)tab[(size_t)((base + (unsigned)r) & (unsigned)row_mask) *
                              RW + l];
   out[(size_t)g * RW + l] = (int)acc;
-}
-
-// out[b, n] = sum_{r < reps} tab[b, (idx[b, n] + r) & (ek - 1)]
-// grid: one block per table row b, which it stages in shared memory.
-__global__ void egather_kernel(const int* __restrict__ tab,
-                               const int* __restrict__ idx,
-                               int* __restrict__ out, int ek, int en,
-                               int reps) {
-  extern __shared__ int s_row[];
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < ek; i += blockDim.x)
-    s_row[i] = tab[(size_t)b * ek + i];
-  __syncthreads();
-  for (int n = threadIdx.x; n < en; n += blockDim.x) {
-    const unsigned base = (unsigned)idx[(size_t)b * en + n];
-    unsigned acc = 0;
-    for (int r = 0; r < reps; ++r)
-      acc += (unsigned)s_row[(base + (unsigned)r) & (unsigned)(ek - 1)];
-    out[(size_t)b * en + n] = (int)acc;
-  }
 }
 
 // out[r, :] += sum_{i in this block's trips} tab[off_i + r, :] for r < ROWS,
@@ -554,10 +589,11 @@ extern "C" int micro_rowgather(const int* tab, const int* idx, int* out,
 // table within 48 KB of shared memory
 extern "C" int micro_egather(const int* tab, const int* idx, int* out, int eb,
                              int ek, int en, int reps, void* stream) {
-  if (eb <= 0 || en <= 0 || !pow2(ek) || ek > 12288 || reps < 0)
-    return (int)cudaErrorInvalidValue;
-  egather_kernel<<<eb, 512, (size_t)ek * sizeof(int), (cudaStream_t)stream>>>(
-      tab, idx, out, ek, en, reps);
+  if (!egather_args_ok(eb, ek, en, reps)) return (int)cudaErrorInvalidValue;
+  const int wide = ek % 4 == 0 && ((size_t)tab & 15) == 0;
+  egather_kernel<<<dim3(eb, (en + EG_THREADS - 1) / EG_THREADS), EG_THREADS,
+                   (size_t)ek * sizeof(int), (cudaStream_t)stream>>>(
+      tab, idx, out, ek, en, reps, wide);
   return (int)cudaGetLastError();
 }
 

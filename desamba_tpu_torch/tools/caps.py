@@ -5,13 +5,13 @@
 Counterpart of ``tools/pallas_caps.py``. There a probe asked whether a
 primitive lowers on the TPU's compiler at all; on the card everything
 compiles, so a probe runs the Hopper form of the primitive (a kernel of
-``kernels/caps.cu``, built from ``kernels/plops.cuh`` where the function is
-a gather, a roll, a scan or a reduction across lanes) and holds its result
-against the numpy expression the TPU probe checks, or, for the five probes
-the TPU tool runs without a check, against the numpy restatement of their
-body. It prints ``<probe>: OK`` per probe and, unlike the TPU tool, which
-prints FAIL and goes on, raises on the first probe whose result is wrong or
-whose launch fails.
+``kernels/caps.cu``) and holds its result against the numpy expression the
+TPU probe checks, or, for the five probes the TPU tool runs without a
+check, against the numpy restatement of their body. An index or a start
+outside its array follows the JAX body's rules (``_take``, ``_start``);
+the tool's inputs have none. It prints ``<probe>: OK`` per probe and,
+unlike the TPU tool, which prints FAIL and goes on, raises on the first
+probe whose result is wrong or whose launch fails.
 
 The three wrappers are the tool's three call sites: ``call_probe`` (its
 ``call``, thirteen probes over twelve bodies), ``smem_sum`` (``f_smem``: a
@@ -34,13 +34,53 @@ I64 = torch.int64
 LANES = 128
 
 
+I32_MIN = -(1 << 31)
+
+
+def _take(axis):
+    """take_along_axis as the JAX body computes it: a negative index counts
+    from the end, and one still outside the table reads INT32_MIN."""
+    def f(t, i):
+        n = t.shape[axis]
+        i = i.long()
+        i = torch.where(i < 0, i + n, i)
+        ok = (i >= 0) & (i < n)
+        return torch.where(ok, torch.gather(t, axis, torch.where(ok, i, 0)),
+                           I32_MIN).to(I32)
+    return f
+
+
+def _np_take(axis):
+    def f(t, i):
+        n = t.shape[axis]
+        i = i.astype(np.int64)
+        i = np.where(i < 0, i + n, i)
+        ok = (i >= 0) & (i < n)
+        return np.where(ok, np.take_along_axis(t, np.where(ok, i, 0), axis),
+                        I32_MIN).astype(np.int32)
+    return f
+
+
+def _start(s, n, size):
+    """A dynamic start of a ``size``-long slice of n entries as the JAX
+    body takes it: a negative one counts from the end, then it is clamped
+    so that the slice lies inside."""
+    s = int(s)
+    return min(max(s + n if s < 0 else s, 0), n - size)
+
+
 def _roll(axis):
     return lambda t, s: torch.roll(t, int(s[0]), axis)
 
 
+def _lane_ds(t, s):
+    o = _start(s[0], t.shape[1], LANES)
+    return t[:, o:o + LANES]
+
+
 def _ds2d(t, s):
-    o0 = min(max(int(s[0]), 0), t.shape[0] - 8)
-    o1 = min(max(int(s[1]), 0), t.shape[1] - LANES)
+    o0 = _start(s[0], t.shape[0], 8)
+    o1 = _start(s[1], t.shape[1], LANES)
     return t[o0:o0 + 8, o1:o1 + LANES]
 
 
@@ -74,13 +114,13 @@ def _argmax(t):
 
 def _dynrow(t, s):
     out = torch.zeros(8, LANES, dtype=I32, device=t.device)
-    out[int(s[0])] = t[0]
+    out[_start(s[0], 8, 1)] = t[0]
     return out
 
 
 def _np_dynrow(t, s):
     out = np.zeros((8, LANES), np.int32)
-    out[s[0]] = t[0]
+    out[_start(s[0], 8, 1)] = t[0]
     return out
 
 
@@ -93,24 +133,19 @@ def _wrap(a):
 # the tool's
 CALL_PROBES = (
     ("take_along_axis axis=0 (8,128) from (8,128)", "take0", ("tab8", "idx8"),
-     lambda t, i: torch.gather(t, 0, i.long()),
-     lambda t, i: np.take_along_axis(t, i, 0)),
+     _take(0), _np_take(0)),
     ("take_along_axis axis=0 (8,128) from (32,128)", "take0",
-     ("tab32", "idx32"),
-     lambda t, i: torch.gather(t, 0, i.long()),
-     lambda t, i: np.take_along_axis(t, i, 0)),
+     ("tab32", "idx32"), _take(0), _np_take(0)),
     ("take_along_axis axis=1 (8,128) from (8,128)", "take1", ("tab8", "idxl"),
-     lambda t, i: torch.gather(t, 1, i.long()),
-     lambda t, i: np.take_along_axis(t, i, 1)),
+     _take(1), _np_take(1)),
     ("roll dynamic shift axis=1", "roll1", ("tab8", "sh"), _roll(1),
      lambda t, s: np.roll(t, s[0], 1)),
     ("roll dynamic shift axis=0", "roll0", ("tab8", "sh"), _roll(0),
      lambda t, s: np.roll(t, s[0], 0)),
     ("lane-dim dynamic slice (8, 512)[:, o:o+128]", "lane_ds", ("big", "off"),
-     lambda t, s: t[:, int(s[0]):int(s[0]) + LANES],
-     lambda t, s: t[:, s[0]:s[0] + LANES]),
+     _lane_ds, _lane_ds),
     ("dynamic_slice both dims (64,512)->(8,128)", "ds2d", ("big2", "off2"),
-     _ds2d, lambda t, s: t[s[0]:s[0] + 8, s[1]:s[1] + LANES]),
+     _ds2d, _ds2d),
     ("uint32 mul/xor/shift", "u32", ("u",), _u32hash, _np_u32hash),
     ("while_loop scalar state + row reads", "while", ("tab8",), _while_rows,
      lambda t: np.full((8, LANES), _wrap(t.sum(dtype=np.int64)))),
@@ -133,6 +168,8 @@ S2_PROBE = ("(1,1) scalar operand", "s2", ("tab8", "s2"),
 # kernels/caps.cu's table of probes
 KERNELS = ("take0", "take1", "roll1", "roll0", "lane_ds", "ds2d", "u32",
            "sum", "while", "u8", "argmax", "dynrow", "cumsum", "s2")
+# the kernels that load their first input in 16-byte words
+WIDE = ("u32", "u8", "s2")
 # (first input's shape, or None for any (n, 128); its dtype; second input's
 # shape)
 SHAPES = {
@@ -167,9 +204,6 @@ def _run(wrapper, probe, tensors):
         raise ValueError(f"{kernel}: inputs must be {shape_a} {dtype_a}"
                          + (f" and {shape_b} int32 on one device"
                             if shape_b else "") + f", got {got}")
-    if kernel == "lane_ds" and a.device.type == "cpu" and not (
-            0 <= int(tensors[1][0]) <= a.shape[1] - LANES):
-        raise ValueError("lane_ds: the slice must lie inside the array")
     if a.device.type == "cpu":
         return plain(*tensors).contiguous()
     if a.device.type != "cuda":
@@ -177,9 +211,9 @@ def _run(wrapper, probe, tensors):
     from ..kernels.build import caps_lib
 
     a = a.contiguous()
-    if kernel == "s2" and a.data_ptr() % 16:
-        raise ValueError("s2: the tile must be 16-byte aligned (the kernel "
-                         "loads it 16 bytes a thread)")
+    if kernel in WIDE and a.data_ptr() % 16:
+        raise ValueError(f"{kernel}: the tile must be 16-byte aligned (the "
+                         f"kernel loads it 16 bytes a thread)")
     b = tensors[1].contiguous() if shape_b is not None else a
     out = torch.empty((1,) if kernel == "sum" else (8, LANES), dtype=I32,
                       device=a.device)

@@ -162,14 +162,15 @@ inline bool release_warps(int threads) {
   return any;
 }
 
-// Run block b of a grid of `blocks`, of `threads` threads each. Returns
-// nullptr, or what went wrong.
+// Run block (b, by) of a grid of blocks x blocks_y, of `threads` threads
+// each. Returns nullptr, or what went wrong.
 inline const char* run_block(int b, int threads, bool reverse,
-                             std::function<void()> fn, int blocks = 1) {
+                             std::function<void()> fn, int blocks = 1,
+                             int by = 0, int blocks_y = 1) {
   S.body = std::move(fn);
   S.error = nullptr;
-  S.bid = emu_dim3{(unsigned)b, 0, 0};
-  S.gdim = emu_dim3{(unsigned)blocks, 1, 1};
+  S.bid = emu_dim3{(unsigned)b, (unsigned)by, 0};
+  S.gdim = emu_dim3{(unsigned)blocks, (unsigned)blocks_y, 1};
   S.bdim = emu_dim3{(unsigned)threads, 1, 1};
   S.tid.resize(threads);
   S.ctx.resize(threads);
@@ -235,6 +236,26 @@ inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+
+// the 16-byte vector word, and a load through the read-only data cache
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+
+// cp.async (cuda_pipeline.h): the copy lands at once, and the commit and
+// the wait have nothing to order. A thread that reads another's copy
+// without a barrier between them still reads stale words in one of the two
+// thread orders.
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 
 // Blocks run one after another on one host thread, so an atomic is a plain
 // read-modify-write and a fence has nothing to order.

@@ -1,7 +1,8 @@
-// The three kernels of kernels/micro.cu that compile as host C++
-// (lgather_kernel, K6.2, rgather_kernel, K6.3, and oneprog_kernel, K5.c)
-// over block_emu.h: micro_emu_lgather, micro_emu_rgather and
-// micro_emu_oneprog run each kernel's grid on the CPU, block by block, with
+// The four kernels of kernels/micro.cu that compile as host C++
+// (lgather_kernel, K6.2, rgather_kernel, K6.3, oneprog_kernel, K5.c, and
+// egather_kernel, K4.2) over block_emu.h: micro_emu_lgather,
+// micro_emu_rgather, micro_emu_oneprog and micro_emu_egather run each
+// kernel's grid on the CPU, block by block, with
 // the arguments of its launcher (no stream), the block size and an order:
 // `reverse` runs the blocks from the last to the first (so another block
 // finishes last) and each block's threads n-1..0 between barriers and warp
@@ -15,6 +16,8 @@ alignas(16) int s_lg[2 * 64 * 128];
 alignas(16) unsigned s_rg[232448 / 4];
 // oneprog's: A and B of each thread's map, and the last-block flag
 unsigned s_op[2 * 256 + 1];
+// egather's: the largest row micro_egather stages
+alignas(16) int s_eg[12288];
 
 #include "micro.cu"
 
@@ -22,6 +25,7 @@ static_assert(sizeof(s_rg) == RG_MAX_SMEM, "rgather's largest launch");
 
 static_assert(sizeof(s_op) == (2 * OP_THREADS + 1) * sizeof(unsigned),
               "oneprog's launch");
+static_assert(sizeof(s_eg) == EG_MAX_EK * sizeof(int), "egather's launch");
 
 static const char* last_error = "";
 
@@ -99,6 +103,32 @@ extern "C" int micro_emu_oneprog(const int* x, unsigned* scratch, int* out,
           oneprog_kernel(x, scratch, scratch + 1, out, n, chunk);
         }))
       return 1;
+  }
+  return 0;
+}
+
+// tab (eb, ek), idx (eb, en), out (eb, en): what micro_egather takes
+// (egather_args_ok), its grid of (eb, en / threads) blocks at `threads` a
+// block (up to the launcher's), in 16-byte copies where `wide` (the
+// launcher's choice for whole 16-byte words) and in 4-byte ones otherwise
+extern "C" int micro_emu_egather(const int* tab, const int* idx, int* out,
+                                 int eb, int ek, int en, int reps, int wide,
+                                 int threads, int reverse) {
+  if (!egather_args_ok(eb, ek, en, reps) || threads <= 0 ||
+      threads > EG_THREADS || (wide && (ek % 4 || ((size_t)tab & 15)))) {
+    last_error = "argument out of range";
+    return 1;
+  }
+  const int by = (en + threads - 1) / threads, blocks = eb * by;
+  for (int k = 0; k < blocks; ++k) {
+    const int j = reverse ? blocks - 1 - k : k;
+    std::memset(s_eg, 0xA5, sizeof(s_eg));   // shared memory starts undefined
+    const char* err = bemu::run_block(
+        j / by, threads, reverse != 0,
+        [&] { egather_kernel(tab, idx, out, ek, en, reps, wide); }, eb,
+        j % by, by);
+    last_error = err ? err : "";
+    if (err) return 1;
   }
   return 0;
 }

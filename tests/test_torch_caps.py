@@ -7,6 +7,11 @@ card's kernels against, bit for bit (tolerance 0: everything is integer).
 The tool runs its probes when imported, so its twelve ``call`` bodies and
 its two other call sites are restated here verbatim, with the lines they
 restate."""
+import ctypes
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -138,23 +143,52 @@ PALLAS = {
 NAMES = [p[2][0] for p in caps.probes()]
 
 
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
 def _inputs(variant):
     """The tool's own inputs (seed 0), or a second draw with other
-    scalars, ties for the argmax and words that make the sums wrap."""
+    scalars, ties for the argmax and words that make the sums wrap
+    ("edges"); "bounds" and "bounds2" add, on further draws, gather
+    indices outside their tables (negative ones that count from the end,
+    and ones that stay outside), slice starts and a row that are negative
+    or past the end (clamped), roll shifts that are negative or far past
+    the width, and ties inside one warp and at the last lane."""
     if variant == "tool":
         return caps.make_inputs(0)
-    x = caps.make_inputs(11)
+    seed = {"edges": 11, "bounds": 12, "bounds2": 13}[variant]
+    x = caps.make_inputs(seed)
     x["tab8"] = (x["tab8"].astype(np.int64) * 40_000_000 - (1 << 31)).astype(
         np.int32)
-    x["tab8"][2, 5] = x["tab8"][2, 90] = (1 << 31) - 1      # a tie: first wins
-    x["tab8"][3, :] = -7                                    # all equal
+    x["tab8"][2, 5] = x["tab8"][2, 90] = I32_MAX      # a tie: first wins
+    x["tab8"][3, :] = -7                              # all equal
     x.update(sh=np.array([127], np.int32), off=np.array([384], np.int32),
              off2=np.array([56, 0], np.int32), row=np.array([7], np.int32),
-             s2=np.array([[-(1 << 31)]], np.int32))
+             s2=np.array([[I32_MIN]], np.int32))
+    if variant == "edges":
+        return x
+    x["tab8"][4, 40] = x["tab8"][4, 41] = I32_MAX     # a tie in one warp
+    x["tab8"][5, :] = I32_MIN
+    x["tab8"][5, 127] = I32_MIN + 1                   # the last lane alone
+    x["idx8"][0, :6] = [8, -1, -8, -9, I32_MIN, I32_MAX]
+    x["idx32"][1, :5] = [32, -1, -32, -33, 40]
+    x["idxl"][2, :6] = [128, -1, -128, -129, I32_MIN, I32_MAX]
+    if variant == "bounds":
+        x.update(sh=np.array([-131], np.int32), off=np.array([-5], np.int32),
+                 off2=np.array([-3, -5], np.int32),
+                 row=np.array([-1], np.int32))
+    else:
+        x.update(sh=np.array([I32_MAX], np.int32),
+                 off=np.array([1000], np.int32),
+                 off2=np.array([I32_MIN, I32_MAX], np.int32),
+                 row=np.array([9], np.int32))
     return x
 
 
-@pytest.mark.parametrize("variant", ["tool", "edges"])
+VARIANTS = ["tool", "edges", "bounds", "bounds2"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("name", NAMES)
 def test_probe_matches_its_pallas_body(name, variant):
     assert sorted(NAMES) == sorted(PALLAS)
@@ -231,9 +265,11 @@ def test_wrappers_check_their_inputs_and_device():
         caps.call_probe("roll dynamic shift axis=0", t)
     with pytest.raises(ValueError, match="no probe named"):
         caps.call_probe("nothing", t)
-    with pytest.raises(ValueError, match="inside the array"):
-        caps.call_probe("lane-dim dynamic slice (8, 512)[:, o:o+128]",
-                        torch.zeros(8, 512, dtype=torch.int32), s + 385)
+    # a start past the end is clamped, as the JAX body's slice is
+    big = torch.arange(8 * 512, dtype=torch.int32).view(8, 512)
+    assert torch.equal(caps.call_probe(
+        "lane-dim dynamic slice (8, 512)[:, o:o+128]", big, s + 385),
+        big[:, 384:])
 
 
 def test_cuda_path_builds_the_kernel_or_raises(monkeypatch):
@@ -256,3 +292,87 @@ def test_entry_point_needs_a_card_for_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         caps.main([])
+
+
+# ---- the CUDA source of the probes, run on the CPU ----------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+KERNELS = os.path.join(HERE, "..", "desamba_tpu_torch", "kernels")
+
+
+@pytest.fixture(scope="module")
+def caps_emu(tmp_path_factory):
+    """kernels/caps.cu's probes compiled as host C++ over
+    tests/cuda_host/block_emu.h, loaded with ctypes."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to emulate the kernels with")
+    so = str(tmp_path_factory.mktemp("caps_emu") / "caps_emu.so")
+    host = os.path.join(HERE, "cuda_host")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I", host,
+                    "-I", KERNELS, os.path.join(host, "caps_emu.cpp"),
+                    "-o", so], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    lib.caps_emu.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 2
+    lib.caps_emu.restype = lib.caps_emu_count.restype = ctypes.c_int
+    lib.caps_emu_error.restype = ctypes.c_char_p
+    return lib
+
+
+def _aligned(a):
+    """A copy of ``a`` at a 16-byte aligned address, as the card's
+    allocations are (the wide probes load 16-byte words)."""
+    buf = np.empty(a.nbytes + 16, np.uint8)
+    off = -buf.ctypes.data % 16
+    out = buf[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("name", NAMES)
+def test_probe_kernel_source_matches_plain(caps_emu, name, variant):
+    """kernels/caps.cu itself, on the CPU: each probe's kernel, run as its
+    one block with the launcher's block size and arguments, the block's
+    threads in one order and then the other between barriers and warp
+    collectives, equals the probe's plain version and the Pallas body in
+    interpret mode bit for bit, out-of-range indices, clamped starts,
+    far roll shifts and argmax ties included."""
+    x = _inputs(variant)
+    _, _, (_, kernel, args, plain, _) = next(
+        p for p in caps.probes() if p[2][0] == name)
+    arrays = [_aligned(x[a]) for a in args]
+    a = arrays[0]
+    b = arrays[1] if len(arrays) > 1 else a
+    exp = plain(*(torch.from_numpy(t) for t in arrays)).numpy()
+    j_in = [jnp.asarray(t.view(np.uint32) if kernel == "u32" else t)
+            for t in arrays]
+    assert np.array_equal(np.asarray(PALLAS[name](*j_in)), exp)
+    assert caps_emu.caps_emu_count() == len(caps.KERNELS)
+    for reverse in (0, 1):
+        out = _aligned(np.full(exp.shape, 0x5A5A5A5A, np.int32))
+        rc = caps_emu.caps_emu(caps.KERNELS.index(kernel), a.ctypes.data,
+                               b.ctypes.data, out.ctypes.data, a.shape[0],
+                               reverse)
+        assert rc == 0, caps_emu.caps_emu_error().decode()
+        assert np.array_equal(out, exp), (
+            f"threads {'down' if reverse else 'up'}: "
+            f"{int((out != exp).sum())} of {exp.size} words differ")
+
+
+def test_probe_launcher_refuses_what_its_kernels_cannot_take(caps_emu):
+    """The launcher's checks (caps_args_ok), through the emulator's entry:
+    a probe number outside the table, a negative row count, and a tile of
+    a 16-byte probe (p_u32, p_u8, p_s2) at an address that is not 16-byte
+    aligned; the other probes take any address."""
+    t = _aligned(np.zeros(8 * 128 + 4, np.int32))
+    o = _aligned(np.zeros(8 * 128, np.int32))
+    ptr, skew, out = t.ctypes.data, t.ctypes.data + 4, o.ctypes.data
+    for probe, a, n in ((-1, ptr, 8), (len(caps.KERNELS), ptr, 8),
+                        (0, ptr, -1),
+                        *((caps.KERNELS.index(k), skew, 8) for k in caps.WIDE)):
+        assert caps_emu.caps_emu(probe, a, a, out, n, 0) == 1
+        assert caps_emu.caps_emu_error() == b"argument out of range"
+    assert caps_emu.caps_emu(caps.KERNELS.index("roll0"), skew, skew, out, 8,
+                             0) == 0

@@ -13,9 +13,9 @@ the port's ``make_inputs`` from a seed, so the tables the tools left at zero
 carry values, the start scalar is not 0 and can be negative, and the
 elementwise input has negative words (which pins the shift by 32 and more).
 
-The three kernels of ``kernels/micro.cu`` that compile as host C++ (K6.2's
-``lgather_kernel``, K6.3's ``rgather_kernel`` and K5.c's
-``oneprog_kernel``) also run here from their own source, through
+The four kernels of ``kernels/micro.cu`` that compile as host C++ (K6.2's
+``lgather_kernel``, K6.3's ``rgather_kernel``, K5.c's ``oneprog_kernel``
+and K4.2's ``egather_kernel``) also run here from their own source, through
 ``tests/cuda_host/micro_emu.cpp`` over ``block_emu.h`` (a block's threads as
 coroutines, in both orders between barriers and warp sums), against the
 plain versions; and the splits of their work (trips over blocks, lanes and
@@ -623,8 +623,8 @@ EMU_N = [0, 1, 31, 32, 33, 3001]
 
 @pytest.fixture(scope="module")
 def micro_emu(tmp_path_factory):
-    """lgather_kernel, rgather_kernel and oneprog_kernel of kernels/micro.cu
-    compiled as host C++ over tests/cuda_host/block_emu.h, loaded with
+    """lgather_kernel, rgather_kernel, oneprog_kernel and egather_kernel of
+    kernels/micro.cu compiled as host C++ over tests/cuda_host/block_emu.h, loaded with
     ctypes."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -639,6 +639,8 @@ def micro_emu(tmp_path_factory):
     lib.micro_emu_rgather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
     lib.micro_emu_rgather_fits.argtypes = [ctypes.c_int]
     lib.micro_emu_oneprog.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    lib.micro_emu_egather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.micro_emu_egather.restype = ctypes.c_int
     lib.micro_emu_lgather.restype = lib.micro_emu_oneprog.restype = ctypes.c_int
     lib.micro_emu_rgather.restype = ctypes.c_int
     lib.micro_emu_rgather_fits.restype = ctypes.c_int
@@ -1029,3 +1031,95 @@ def test_oneprog_maps_composed_in_order_equal_the_chain(n, max_blocks,
     assert (_compose(reversed(blocks))[1] != acc) == block_order_shows
     assert int(micro.oneprog_plain(torch.zeros(8, RW, dtype=torch.int32),
                                    n)[0, 0]) & M32 == acc
+
+
+# (eb, ek, en, reps, how the indices are drawn): the tool's shape, a narrow
+# table, no rep and one, every window wrapping past the row's end, a row of
+# outputs that no block size divides, and a row narrower than one 16-byte
+# copy
+EG_CASES = {
+    "tool": (EB, EK, EN, REPK, "any"),
+    "ek128": (EB, 128, EN, REPK, "any"),
+    "reps0": (EB, EK, EN, 0, "any"),
+    "reps1": (EB, EK, EN, 1, "any"),
+    "wrap": (EB, 128, 40, 37, "last"),
+    "ragged": (3, 256, 37, 45, "any"),
+    "ek2": (3, 2, 5, 7, "any"),
+}
+
+
+def _aligned(a):
+    """A copy of ``a`` at a 16-byte aligned address, as the card's
+    allocations are."""
+    buf = np.empty(a.nbytes + 16, np.uint8)
+    off = -buf.ctypes.data % 16
+    out = buf[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+@pytest.mark.parametrize("case", list(EG_CASES))
+def test_egather_kernel_source_matches_plain(micro_emu, case):
+    """kernels/micro.cu egather_kernel (K4.2) itself, on the CPU: its grid
+    of (rows, output blocks) at the launcher's block size and at one and
+    three warps a block, the row staged by 16-byte copies (where the row is
+    whole 16-byte words, as the launcher chooses) and by 4-byte ones, the
+    blocks and each block's threads in one order and then the other (shared
+    memory filled with 0xA5 before each block), equals ``egather_plain`` bit
+    for bit on a table over the whole int32 range (the sums wrap), with
+    negative and extreme indices; in "wrap" every index is ek - 1, so each
+    window runs past the row's end."""
+    eb, ek, en, reps, draw = EG_CASES[case]
+    rng = np.random.default_rng([23, eb, ek, en, reps])
+    tab = rng.integers(I32_MIN, I32_MAX, (eb, ek), dtype=np.int64)
+    if draw == "last":
+        idx = np.full((eb, en), ek - 1, np.int64)
+    else:
+        idx = rng.integers(0, ek, (eb, en), dtype=np.int64)
+        idx[0, :4] = [-1, I32_MIN, I32_MAX, -ek - 3]
+    tab, idx = _aligned(tab.astype(np.int32)), idx.astype(np.int32)
+    exp = micro.egather_plain(torch.from_numpy(tab), torch.from_numpy(idx),
+                              reps).numpy()
+    for wide in ((1, 0) if ek % 4 == 0 else (0,)):
+        for threads in (_micro_define("EG_THREADS"), 32, 96):
+            for reverse in (0, 1):
+                out = np.full((eb, en), 0x5A5A5A5A, np.int32)
+                rc = micro_emu.micro_emu_egather(
+                    tab.ctypes.data, idx.ctypes.data, out.ctypes.data, eb,
+                    ek, en, reps, wide, threads, reverse)
+                assert rc == 0, micro_emu.micro_emu_error().decode()
+                assert np.array_equal(out, exp), (
+                    f"wide {wide}, {threads} threads a block, reverse "
+                    f"{reverse}: {int((out != exp).sum())} of {exp.size} "
+                    f"sums differ")
+    if reps:
+        assert len(np.unique(exp)) > 1
+    if reps > 1:
+        exact = sum(tab.astype(np.int64)[
+            np.arange(eb)[:, None], (idx.astype(np.int64) + r) % ek]
+            for r in range(reps))
+        assert (np.abs(exact) >= 1 << 31).any()     # the sums wrap int32
+
+
+def test_egather_launcher_refusals(micro_emu):
+    """What micro_egather refuses (egather_args_ok, which the emulator's
+    entry shares): no rows or no outputs, an ek that is not a power of two
+    or whose row passes 48 KB of shared memory, negative reps and more
+    output blocks than a grid's second dimension holds; an 8,192-word row,
+    the widest it stages, is taken."""
+    tab = _aligned(np.arange(2 * 16384, dtype=np.int32).reshape(2, 16384))
+    idx = np.zeros((2, 4), np.int32)
+    out = np.zeros((2, 4), np.int32)
+    ptrs = (tab.ctypes.data, idx.ctypes.data, out.ctypes.data)
+    for eb, ek, en, reps in ((0, 8192, 4, 1), (2, 8192, 0, 1),
+                             (2, 3000, 4, 1), (2, 16384, 4, 1),
+                             (2, 8192, 4, -1), (2, 8192, 65536 * 128 + 1, 1)):
+        assert micro_emu.micro_emu_egather(*ptrs, eb, ek, en, reps, 1, 128,
+                                           0) == 1
+        assert micro_emu.micro_emu_error() == b"argument out of range"
+    half = tab.reshape(4, 8192)[:2]
+    assert micro_emu.micro_emu_egather(half.ctypes.data, *ptrs[1:], 2, 8192,
+                                       4, 3, 1, 128, 0) == 0
+    assert np.array_equal(out, micro.egather_plain(
+        torch.from_numpy(np.ascontiguousarray(half)), torch.from_numpy(idx),
+        3).numpy())
