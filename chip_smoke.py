@@ -21,8 +21,10 @@ and a C compiler. Phases:
    and the M3 path both taken; the kernels' launch counts are zeroed just
    before and read just after this run, and so are the eager ladders' and
    chaining functions' counts of runs: the run fails if the rescore kernel
-   (K1), either ladder kernel (B2, B3) or either chaining kernel (B4a,
-   B4b) was not launched, or if an eager ladder or chaining function ran
+   (K1), either ladder kernel (B2, B3), either chaining kernel (B4a,
+   B4b) or either of the ladder calls' pack kernels (``pack2``, the anchor
+   pack) was not launched, if the pack kernels were not launched once each
+   for every ladder launch, or if an eager ladder or chaining function ran
    on the card; the pipeline depth, prep workers and ``os.cpu_count()``,
    each batch's prep, device phase and finish (start and end from the
    call's start) and the island prep's encode, bloom probe and
@@ -47,10 +49,11 @@ and a C compiler. Phases:
    and read just after: each sharded stage's kernel (B2, B3, M2, the main
    batch's K1) launched once a dp row for each call of the stage, M3 and
    the M3 sub-batch's K1 once a call, B3 and M3 wherever the single
-   classifier launched them, no eager ladder or chaining function; the
-   walls and the reads to gold by cause printed beside the single
-   classifier's; then ``distributed.initialize`` on a free localhost port
-   at world size 1 over NCCL, the multi-process worker's ``all_reduce`` of
+   classifier launched them, each pack kernel once a ladder launch, no
+   eager ladder or chaining function; the walls and the reads to gold by
+   cause printed beside the single classifier's; then
+   ``distributed.initialize`` on a free localhost port at world size 1 over
+   NCCL, the multi-process worker's ``all_reduce`` of
    the read count and its ordered gather of the SAM bytes, exact, and
    ``destroy_process_group``; then ``entry()``'s step on the first batch
    three times, timed by CUDA events, its tensors bit-equal to those of
@@ -62,12 +65,15 @@ and a C compiler. Phases:
    to phase 3's first 2,048 records at (1, 4), and at (2, 2) to phase 3d's
    default-layout mesh, with its ``fallback_stats()``; the counts zeroed
    just before and read just after: the sharded B2, B3 and K1 launched
-   once a dp row for each call of their stage, no flat ladder, the flat K1
-   only on the M3 sub-batch, no eager ladder; every captured call of the
-   sharded kernels bit-equal to the flat kernel on the whole tables of
-   ``cuda:0``, the first of each kind also to its plain version (the eager
-   ladder on the shards; K1's plain version reading them from the host),
-   the launch alone timed beside the flat kernel's (K1: the wrapper),
+   once a dp row for each call of their stage, each pack kernel once a
+   ladder launch, no flat ladder, the flat K1 only on the M3 sub-batch, no
+   eager ladder; every captured call of the sharded kernels bit-equal to
+   the flat kernel on the whole tables of ``cuda:0`` and (the ladders) to
+   its own launch followed by the plain pack2 and pack, the first of each
+   kind also to its plain version (the eager ladder on the shards; K1's
+   plain version reading them from the host), the launch alone timed
+   beside the flat kernel's (K1: the wrapper) and the sharded ladder's
+   wrapper,
    with the sharded kernels' ``ptxas`` lines and the walls beside phase
    3d's; the kernels line gains the three sharded instantiations, from
    the (1, 4) run;
@@ -95,12 +101,27 @@ and a C compiler. Phases:
    (hot-tier overflows), each bit-equal (tolerance 0: packed anchors, info
    rows, pack overflow) to the eager ``fast_ladder`` on the card, its
    longest lane's trips equal to the eager loop's trip count; per call the
-   lanes and NB, the kernel's ms by CUDA events twice (the launch alone, on
-   arguments and outputs made once, and through the wrapper: launch and
-   pack), the plain version's ms and trips, the lanes' mean trips, their
-   largest and mean anchor count (a_cnt), the shared memory a block and
-   the bound; the record sums the first batch's calls (``ms`` the launches
-   alone, ``wrapper_ms`` the wrapper's);
+   lanes and NB, the kernel's ms by CUDA events three ways (the launch
+   alone, on arguments and outputs made once; the wrapper, which packs the
+   read codes and the anchor rows by the kernels of ``ladder_pack.cu``;
+   and, in turns with it, the launch with the ends the wrapper had before
+   they were kernels: the plain ``textwalk.pack2``, the anchor rows zeroed,
+   ``pack_anchors`` and ``pack_info``, also bit-equal to the eager ladder),
+   the host's milliseconds from the call to its info rows on the host
+   (``info.cpu()``) both ways, the anchor pack's launch alone in a replayed
+   CUDA graph on the call's ladder outputs (bit-equal to its plain
+   versions), the plain version's ms and trips, the lanes' mean trips,
+   their largest and mean anchor count (a_cnt), the shared memory a block
+   and the bound; the first call also runs the wrapper under
+   ``torch.cuda.set_sync_debug_mode("error")``, where any host sync fails
+   the run; the record sums the first batch's calls (``ms`` the launches
+   alone, ``wrapper_ms`` the wrapper's, ``eager_ends_ms`` the eager ends',
+   ``host_ms`` and ``eager_ends_host_ms`` the host's); then the two pack
+   kernels' records: ``pack2`` on batch 1's read codes (the launch alone in
+   a replayed graph over copies of the codes that pass twice the L2 in
+   all, so each launch reads from device memory; bit-equal to
+   ``textwalk.pack2``), the anchor pack summed over batch 1's ladder
+   calls;
 5c. B3, the slow ladder: the same on phase 3's first batch's slow-ladder
    calls (both directions, each a group of island lengths), the run's
    first slow re-dispatch at the full SP_SET tier where there was one, and
@@ -151,7 +172,9 @@ and a C compiler. Phases:
    by cp.async copies, LDGSTS, behind one barrier, or the run fails) and
    the launch alone in a replayed CUDA graph,
    bit-equal to the plain version, beside the kernel of the checkout at
-   ``--parent`` (built from its ``micro.cu``), in turns;
+   ``--parent`` (built from its ``micro.cu``), in turns; and K4.1's
+   ``rowgather_kernel`` the same way (``ptxas``'s line, the launch alone
+   beside the parent's);
 8. tile helpers: every body of the harness of ``kernels/plops.cu`` (K2) on
    seeded (R, 128) tiles with the edge cases of the CPU test, bit-equal to
    the plain versions;
@@ -411,7 +434,7 @@ def sass_loops(so, kernel):
 
 
 # the sources whose kernels phases 7 and 9 time against another commit's
-# (--parent): K4.2 in micro.cu, K7.1 in caps.cu
+# (--parent): K4.1 and K4.2 in micro.cu, K7.1 in caps.cu
 PARENT_SOURCES = ("micro.cu", "caps.cu")
 
 
@@ -483,6 +506,25 @@ def bound(nbytes, ops):
 
 def tensor_bytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_err_t(a, b):
+    """The largest absolute difference of two integer tensors (any
+    devices), 1 << 62 where their shapes differ."""
+    if a.shape != b.shape:
+        return 1 << 62
+    return int((a.long().cpu() - b.long().cpu()).abs().max())
+
+
+def pack_bytes(a_cnt, a_cap, pack_cap):
+    """Bytes the anchor pack's function must move on one call (numpy
+    ``a_cnt``): each lane's count, flag and SP_SET flag (12 bytes) and its
+    info row (16); the anchor rows written (48 bytes each, at most
+    pack_cap; the score column of a lane's rows past pack_cap, read for its
+    top score, is not counted); every packed row (52 bytes, zeros
+    included); the overflow byte. A lower bound."""
+    rows = min(int(np.minimum(a_cnt, a_cap).sum()), pack_cap)
+    return 28 * len(a_cnt) + 48 * rows + 52 * pack_cap + 1
 
 
 class Touched:
@@ -701,8 +743,9 @@ def main():
     ap.add_argument("--parent", default="",
                     help="root of a checkout of another commit (as "
                          "unpacked by git archive): phases 7 and 9 also "
-                         "build its micro.cu and caps.cu and time its K4.2 "
-                         "and K7.1 kernels beside this tree's, in turns")
+                         "build its micro.cu and caps.cu and time its K4.1, "
+                         "K4.2 and K7.1 kernels beside this tree's, in "
+                         "turns")
     args = ap.parse_args()
 
     import torch
@@ -712,7 +755,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from desamba_tpu_torch import cli
     from desamba_tpu_torch.engine.device import chain as dc
-    from desamba_tpu_torch.engine.device import ladder, plops
+    from desamba_tpu_torch.engine.device import ladder, plops, textwalk
     from desamba_tpu_torch.engine.device import rescore_pl as trp
     from desamba_tpu_torch.engine.device.classifier import (A_CAP, M_CAP,
                                                             DeviceClassifier)
@@ -754,6 +797,10 @@ def main():
     log(f"ptxas fast_ladder_kernel: {b2_ptxas}")
     b3_ptxas = ptxas_lines(built["ladder.cu"], "slow_ladder_kernel")
     log(f"ptxas slow_ladder_kernel: {b3_ptxas}")
+    pack_ptxas = {k: ptxas_lines(built["ladder_pack.cu"], k)
+                  for k in ("pack2_kernel", "anchor_pack_kernel")}
+    for k, v in pack_ptxas.items():
+        log(f"ptxas {k}: {v}")
     # B4's block shapes, the wrapper's first: M2 one (a warp a read), M3 8
     # or 4 warps a block (by the batch: m3_warps)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -796,7 +843,9 @@ def main():
     kernels = {"rescore": trp.rescore_cuda, "cmpcount": compare_count,
                "fast_ladder": ladder.fast_ladder_cuda,
                "slow_ladder": ladder.slow_ladder_cuda,
-               "chain": dc.chain_kernel_cuda, "m3_chain": dc.m3_kernel_cuda}
+               "chain": dc.chain_kernel_cuda, "m3_chain": dc.m3_kernel_cuda,
+               "pack2": ladder.pack2_cuda,
+               "anchor_pack": ladder.anchor_pack_cuda}
     eager = {"fast_ladder": ladder.fast_ladder,
              "slow_ladder": ladder.slow_ladder,
              "chain": dc.chain_kernel, "m3_chain": dc.m3_kernel}
@@ -813,6 +862,16 @@ def main():
             f.runs = 0
         torch.cuda.synchronize()
 
+    def check_pack_launches(what, counts, sh_counts):
+        """Each ladder launch, flat or sharded, comes with one launch of
+        each pack kernel: the ladder calls' ends ran on the card."""
+        n = sum(c.get(k, 0) for c in (counts, sh_counts)
+                for k in ("fast_ladder", "slow_ladder"))
+        if n <= 0 or counts["pack2"] != n or counts["anchor_pack"] != n:
+            failures.append(f"{what}: pack2 launched {counts['pack2']} and "
+                            f"the anchor pack {counts['anchor_pack']} times "
+                            f"for {n} ladder launches")
+
     def check_counts(what):
         """The path kernels' launches and the eager functions' runs since
         ``zero_counts``: a path kernel not launched, or an eager function
@@ -820,10 +879,11 @@ def main():
         launches = {n: k.launches for n, k in kernels.items()}
         eager_runs = {n: f.runs for n, f in eager.items()}
         for name in ("rescore", "fast_ladder", "slow_ladder", "chain",
-                     "m3_chain"):
+                     "m3_chain", "pack2", "anchor_pack"):
             if launches[name] <= 0:
                 failures.append(f"kernel {name} was not launched by the "
                                 f"{what} run")
+        check_pack_launches(what, launches, {})
         for name, n in eager_runs.items():
             if n:
                 failures.append(f"the eager {name} ran {n} times on the "
@@ -1139,6 +1199,7 @@ def main():
             if single_counts[name] > 0 and counts[name] <= 0:
                 failures.append(f"{what}: {name} was not launched, where "
                                 f"one device launched it")
+        check_pack_launches(what, counts, {})
         log(f"{what}: mesh {wall:.3f} s against one device's "
             f"{single_wall:.3f} s on {card}; SAM "
             + ("byte-equal to phase 3's" if same else "DIFFERS"))
@@ -1201,11 +1262,21 @@ def main():
     ladder_lib = build.ladder_lib()
     d0 = dev.dix.fm_blocks.device       # cuda:0, its index filled in
 
-    def ladder_launch_ms(which, a, kw, device):
-        """The ladder kernel's launch alone (whole or sharded tables, by
-        ``a``) on arguments and outputs made once, by CUDA events."""
-        largs, held = ladder.ladder_launch_args(
-            *a, **{k: v for k, v in kw.items() if k != "pack_cap"})
+    def ladder_raw(which, a, kw, device, plain_codes=False):
+        """The ladder kernel's library entry alone (whole or sharded tables,
+        by ``a``) on LadderArgs and outputs made once: (launch, the
+        tensors). ``plain_codes``: the codes packed by the plain
+        ``textwalk.pack2``, as the wrapper packed them before its ends were
+        kernels."""
+        launch_kw = {k: v for k, v in kw.items() if k != "pack_cap"}
+        if plain_codes:
+            kernel_pack2 = ladder.pack2_cuda
+            ladder.pack2_cuda = lambda c: textwalk.pack2(c).contiguous()
+        try:
+            largs, held = ladder.ladder_launch_args(*a, **launch_kw)
+        finally:
+            if plain_codes:
+                ladder.pack2_cuda = kernel_pack2
         tag = ("_sharded" if isinstance(largs, ladder.ShardedLadderArgs)
                else "")
         entry_fn = getattr(ladder_lib, f"ladder_{which}{tag}_launch")
@@ -1216,23 +1287,55 @@ def main():
             if rc:
                 raise RuntimeError(f"ladder_{which}{tag}_launch: CUDA error "
                                    f"{rc}")
+        return launch, held
 
+    def ladder_launch_ms(which, a, kw, device):
+        """The ladder kernel's launch alone (whole or sharded tables, by
+        ``a``) on arguments and outputs made once, by CUDA events."""
+        launch, held = ladder_raw(which, a, kw, device)
         with torch.cuda.device(device):
             ms = cuda_ms(launch, 5)
             torch.cuda.synchronize(device)
         del held
         return ms
 
+    def eager_ends(which, a, kw, device):
+        """One ladder call as the wrapper made it before its ends were
+        kernels: the plain pack2 of the read codes, the anchor rows zeroed,
+        the launch, then the plain pack_anchors and pack_info (two host
+        syncs). Returns what the wrapper returns."""
+        launch, t = ladder_raw(which, a, kw, device, plain_codes=True)
+        t["anchors"].zero_()
+        launch()
+        packed, base, ovf = ladder.pack_anchors(t["anchors"], t["a_cnt"],
+                                                kw["pack_cap"])
+        return packed, ladder.pack_info(base, t["a_cnt"], t["flag"],
+                                        t["iv_ovf"]), ovf
+
+    def host_ms(fn, reps=5):
+        """Mean host milliseconds from a ladder call to its info rows on the
+        host (``info.cpu()``), the card idle at each start."""
+        fn()[1].cpu()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()[1].cpu()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return sum(walls) / len(walls)
+
     def ladder_diff(x, y):
         return max(int((x[0].long() - y[0].long().to(x[0].device))
                        .abs().max()),
                    int((x[1].long() - y[1].long().to(x[1].device))
-                       .abs().max()), int(x[2] != y[2]))
+                       .abs().max()), int(bool(x[2]) != bool(y[2])))
 
     def sharded_ladder(which, a, kw, what, plain_too):
         """One captured call of the sharded B2 (B3): bit-equal to the flat
-        kernel on the whole tables of cuda:0 and (``plain_too``) to the
-        eager ladder on the shards; both launches alone timed."""
+        kernel on the whole tables of cuda:0, to its own launch with the
+        plain ends (the pack kernels against their plain versions on this
+        call) and (``plain_too``) to the eager ladder on the shards; both
+        launches alone and the sharded wrapper timed."""
         dd = a[9].device
         sh_fn = sharded_kernels[f"{which}_ladder"]
         flat_args = (dev.ixr, dev.dix.fm_blocks, dev.dix.rank,
@@ -1241,10 +1344,13 @@ def main():
         with torch.cuda.device(dd):
             got = sh_fn(*a, **kw)
             torch.cuda.synchronize(dd)
-        trips = sh_fn.trips.cpu().numpy()
+            trips = sh_fn.trips.cpu().numpy()
+            ends = eager_ends(which, a, kw, dd)
+            torch.cuda.synchronize(dd)
+            wrap_ms = cuda_ms(lambda: sh_fn(*a, **kw), 3)
         exp = kernels[f"{which}_ladder"](*flat_args, **kw)
         torch.cuda.synchronize()
-        err = ladder_diff(got, exp)
+        err = max(ladder_diff(got, exp), ladder_diff(got, ends))
         plain_ms, err_p = None, None
         if plain_too:
             e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
@@ -1262,17 +1368,20 @@ def main():
                               idx.len_e_kmer, A_CAP, kw["pack_cap"])
         lanes = int((a[9][7] != 0).sum())
         log(f"{what}: sharded {which} ladder on {dd}, {lanes} lanes, NB "
-            f"{a[9].shape[1]}: the launch alone {ms:.4f} ms, the flat "
-            f"kernel's on cuda:0 {flat_ms:.4f} ms (by events); longest lane "
-            f"{int(trips.max())} trips; max_abs_err against the flat kernel "
-            f"{err}" + ("" if not plain_too else
-                        f", against the eager ladder on the shards {err_p} "
-                        f"({plain_ms:.1f} ms)"))
+            f"{a[9].shape[1]}: the launch alone {ms:.4f} ms, the wrapper "
+            f"(launch and the pack kernels) {wrap_ms:.4f} ms, the flat "
+            f"kernel's launch alone on cuda:0 {flat_ms:.4f} ms (by events); "
+            f"longest lane {int(trips.max())} trips; max_abs_err against the "
+            f"flat kernel and against the launch with the plain ends {err}"
+            + ("" if not plain_too else
+               f", against the eager ladder on the shards {err_p} "
+               f"({plain_ms:.1f} ms)"))
         if err or err_p:
             failures.append(f"{what}: sharded {which} ladder differs (flat "
-                            f"{err}, plain {err_p})")
-        return dict(ms=ms, flat_ms=flat_ms, plain_ms=plain_ms,
-                    err=max(err, err_p or 0), nbytes=nbytes)
+                            f"or plain ends {err}, plain {err_p})")
+        return dict(ms=ms, flat_ms=flat_ms, wrap_ms=wrap_ms,
+                    plain_ms=plain_ms, err=max(err, err_p or 0),
+                    nbytes=nbytes)
 
     def sharded_rescore(a, what, plain_too):
         """One captured call of the sharded K1: bit-equal to the flat kernel
@@ -1384,6 +1493,7 @@ def main():
                 counts["rescore"] != stage["_k_rescore_m3"]):
             failures.append(f"{what}: a flat ladder or main-batch K1 ran: "
                             f"{json.dumps(counts)}")
+        check_pack_launches(what, counts, sh_counts)
         if sam != ref_sam:
             failures.append(f"{what}: SAM differs from the reference")
         stats = clf.fallback_stats()
@@ -1429,17 +1539,22 @@ def main():
         if not got:
             failures.append(f"shard_full (1, 4): no {stage} call captured")
             continue
+        wrap = {}
         if stage == "rescore":
             ms, flat_ms, bnd = got[0]["ms"], got[0]["flat_ms"], got[0]["bnd"]
         else:
             ms = sum(r["ms"] for r in got)
             flat_ms = sum(r["flat_ms"] for r in got)
             bnd = bound(sum(r["nbytes"] for r in got), 0)
+            wrap = {"wrapper_ms": sum(r["wrap_ms"] for r in got)}
         log(f"sharded {name} at (1, 4), "
             + ("the first call" if stage == "rescore" else
                f"{len(got)} calls") + f": {ms:.4f} ms against the flat "
-            f"kernel's {flat_ms:.4f} ms on {card}; bound {bnd[0]:.6f} ms "
-            f"({bnd[1]}); ptxas {sh_ptxas[name]}")
+            f"kernel's {flat_ms:.4f} ms on {card}"
+            + (f" (the sharded wrapper {wrap['wrapper_ms']:.4f} ms, "
+               f"{wrap['wrapper_ms'] / ms:.3f}x its launches alone)"
+               if wrap else "")
+            + f"; bound {bnd[0]:.6f} ms ({bnd[1]}); ptxas {sh_ptxas[name]}")
         if ms < bnd[0]:
             failures.append(f"sharded {name} beat its bound: {ms} < {bnd[0]}")
         sharded_records.append({
@@ -1449,7 +1564,8 @@ def main():
             "launches": sh14_counts[name],
             "launches_per_call": 1 if stage == "rescore" else len(got),
             "max_abs_err": max(r["err"] for r in got),
-            "ms": ms, "flat_ms": flat_ms, "plain_ms": got[0]["plain_ms"],
+            "ms": ms, "flat_ms": flat_ms, **wrap,
+            "plain_ms": got[0]["plain_ms"],
             "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": None, "library_eager_ms": None})
     del sh14
@@ -1545,10 +1661,46 @@ def main():
             "library_ms": None, "library_eager_ms": None})
 
     # ---- 5b, 5c. B2 and B3: the ladders on the main path's calls -----------
-    def check_ladder(which, tag, a, iv_cap):
+    pack_lib = build.ladder_pack_lib()
+
+    def check_pack(a, kw, device):
+        """The anchor-pack kernel's launch alone (its library entry on
+        outputs made once) on one call's ladder outputs, in a replayed CUDA
+        graph, against its plain versions (pack_anchors, pack_info) on the
+        same tensors; its bound (``pack_bytes``)."""
+        launch, t = ladder_raw(a[0], a[1], kw, device)
+        launch()
+        NB, a_cap = t["a_cnt"].shape[0], t["anchors"].shape[1]
+        outs = (torch.empty((kw["pack_cap"], 13), dtype=torch.int32,
+                            device=device),
+                torch.empty((NB, 4), dtype=torch.int32, device=device),
+                torch.empty((), dtype=torch.bool, device=device))
+        fn = lib_launch(pack_lib.ladder_anchor_pack_launch, t["anchors"],
+                        t["a_cnt"], t["flag"], t["iv_ovf"], *outs, NB, a_cap,
+                        kw["pack_cap"], device.index)
+        fn()
+        torch.cuda.synchronize()
+
+        def plain():
+            packed, base, ovf = ladder.pack_anchors(t["anchors"], t["a_cnt"],
+                                                    kw["pack_cap"])
+            return packed, ladder.pack_info(base, t["a_cnt"], t["flag"],
+                                            t["iv_ovf"]), ovf
+        err = ladder_diff(outs, plain())
+        return dict(ms=micro.graph_ms(fn, device, 50),
+                    plain_ms=cuda_ms(plain, 3), err=err,
+                    nbytes=pack_bytes(t["a_cnt"].cpu().numpy(), a_cap,
+                                      kw["pack_cap"]))
+
+    def check_ladder(which, tag, a, iv_cap, sync_check=False):
         """The ``which`` ladder's kernel and its eager version on one captured
         call's arguments at ``iv_cap``: compared (tolerance 0), timed,
-        bounded."""
+        bounded; the wrapper beside the launch alone and beside the call as
+        it was before its ends were kernels (``eager_ends``), by events and
+        by the host's clock to the info rows; the anchor pack's launch alone
+        (``check_pack``). ``sync_check``: the wrapper also runs once under
+        ``torch.cuda.set_sync_debug_mode("error")``, where any host sync
+        raises."""
         codes_fr, buf_len, pre13, lane_args, NB = a
         dix = dev.dix
         args = (dev.ixr, dix.fm_blocks, dix.rank, dix.hash13, codes_fr,
@@ -1559,6 +1711,7 @@ def main():
             kw["m_cap"] = M_CAP
         kernel = kernels[f"{which}_ladder"]
         plain = eager[f"{which}_ladder"]
+        dd = args[9].device
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
         trips = kernel.trips.cpu().numpy()
@@ -1568,11 +1721,41 @@ def main():
         e1.record()
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1)
-        wrap_ms = cuda_ms(lambda: kernel(*args, **kw), 5)
-        # the launch alone, on arguments and outputs made once (the wrapper
-        # also packs the read codes, zeroes the anchor rows and packs them)
-        ms = ladder_launch_ms(which, args, kw, args[9].device)
-        err = ladder_diff(got, exp)
+        err = max(ladder_diff(got, exp),
+                  ladder_diff(eager_ends(which, args, kw, dd), exp))
+        sync_err = None
+        if sync_check:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                synced = kernel(*args, **kw)
+            except RuntimeError as e:
+                sync_err, synced = str(e).splitlines()[0], None
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if synced is not None:
+                torch.cuda.synchronize()
+                err = max(err, ladder_diff(synced, exp))
+            log(f"{which} ladder {tag}: the wrapper under "
+                f"set_sync_debug_mode('error'): "
+                + ("no host sync" if sync_err is None
+                   else f"RAISED: {sync_err}"))
+            if sync_err is not None:
+                failures.append(f"{which} ladder {tag}: the wrapper synced "
+                                f"with the host: {sync_err}")
+        # the wrapper (launch and the two pack kernels) and the eager ends,
+        # in turns
+        wrap = lambda: kernel(*args, **kw)                    # noqa: E731
+        ends = lambda: eager_ends(which, args, kw, dd)        # noqa: E731
+        t_w, t_e = [], []
+        for f, acc in ((wrap, t_w), (ends, t_e), (ends, t_e), (wrap, t_w)):
+            acc.append(cuda_ms(f, 3))
+        wrap_ms, ends_ms = sum(t_w) / 2, sum(t_e) / 2
+        host_w, host_e = host_ms(wrap), host_ms(ends)
+        # the launch alone, on arguments and outputs made once
+        ms = ladder_launch_ms(which, args, kw, dd)
+        pk = check_pack((which, args), kw, dd)
+        err = max(err, pk["err"])
         info = exp[1].cpu().numpy()
         nbytes = ladder_bytes(lane_args.cpu().numpy(), trips, info,
                               idx.len_e_kmer, A_CAP, 2 * NB)
@@ -1584,9 +1767,14 @@ def main():
         smem = ladder_lib.ladder_smem_bytes(
             ladder.IV_CAP if iv_cap is None else iv_cap)
         log(f"{which} ladder {tag} (iv_cap {iv_cap}): {lanes} lanes, NB {NB}: "
-            f"kernel {ms:.4f} ms (the launch alone), {wrap_ms:.4f} ms "
-            f"(launch and pack), by events; plain "
-            f"{plain_ms:.1f} ms over {plain.trips} trips; lanes' "
+            f"kernel {ms:.4f} ms (the launch alone), {wrap_ms:.4f} ms (the "
+            f"wrapper: pack2, launch, anchor pack; {wrap_ms / ms:.3f}x), "
+            f"{ends_ms:.4f} ms (the launch with the eager ends: plain pack2, "
+            f"zeroed rows, pack_anchors, pack_info; {ends_ms / ms:.3f}x), by "
+            f"events; host call to info.cpu() {host_w:.4f} ms (wrapper), "
+            f"{host_e:.4f} ms (eager ends); anchor pack alone "
+            f"{pk['ms']:.5f} ms in a graph, plain {pk['plain_ms']:.4f} ms; "
+            f"plain ladder {plain_ms:.1f} ms over {plain.trips} trips; lanes' "
             f"trips: longest {int(trips.max())}, mean over the lanes "
             f"{trips[:lanes].mean():.3f}; lanes' a_cnt: largest "
             f"{int(a_cnt.max(initial=0))}, mean {a_cnt.mean():.3f}; "
@@ -1595,18 +1783,20 @@ def main():
             f"{int(info[:, 1].sum())} anchors, {int(info[:, 3].sum())} lanes "
             f"with an SP_SET overflow{extra}; max_abs_err {err}")
         if err != 0:
-            failures.append(f"{which} ladder {tag} (iv_cap {iv_cap}): kernel "
-                            f"differs from the eager version: max_abs_err "
-                            f"{err}")
+            failures.append(f"{which} ladder {tag} (iv_cap {iv_cap}): kernel, "
+                            f"eager ends or anchor pack differs from the "
+                            f"eager version: max_abs_err {err}")
         if int(trips.max()) != plain.trips:
             failures.append(f"{which} ladder {tag}: longest lane "
                             f"{trips.max()} trips, eager loop {plain.trips}")
         if min(ms, wrap_ms) < bnd[0]:
             failures.append(f"{which} ladder {tag} beat its bound: "
                             f"{min(ms, wrap_ms)} < {bnd[0]} ms")
-        return dict(ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, err=err,
-                    nbytes=nbytes, ovf=int(info[:, 3].sum()))
+        return dict(ms=ms, wrap_ms=wrap_ms, ends_ms=ends_ms, host_w=host_w,
+                    host_e=host_e, plain_ms=plain_ms, err=err, nbytes=nbytes,
+                    ovf=int(info[:, 3].sum()), pack=pk)
 
+    pack_calls = []
     for which, name, line, ptxas in (
             ("fast", "fast_ladder", 98, b2_ptxas),
             ("slow", "slow_ladder", 211, b3_ptxas)):
@@ -1616,7 +1806,9 @@ def main():
             failures.append(f"no {which}-ladder call was captured")
             continue
         checked = [check_ladder(which, f"batch 1 call {i + 1}", a,
-                                ladder.IV_HOT) for i, a in enumerate(batch1)]
+                                ladder.IV_HOT, sync_check=i == 0)
+                   for i, a in enumerate(batch1)]
+        pack_calls += [r["pack"] for r in checked]
         full = [a for k, c, a in ladder_calls if k == which and c is None]
         if full:
             check_ladder(which, "first full-tier re-dispatch", full[0], None)
@@ -1628,11 +1820,17 @@ def main():
             failures.append(f"{which} ladder at iv_cap=1 never overflowed")
         nbytes = sum(r["nbytes"] for r in checked)
         bms, by = bound(nbytes, 0)
-        log(f"{which} ladder, batch 1 ({len(checked)} calls): kernel "
-            f"{sum(r['ms'] for r in checked):.4f} ms (the launches alone), "
-            f"{sum(r['wrap_ms'] for r in checked):.4f} ms (launch and pack), "
-            f"plain "
-            f"{sum(r['plain_ms'] for r in checked):.1f} ms, bound "
+        tot = {k: sum(r[k] for r in checked)
+               for k in ("ms", "wrap_ms", "ends_ms", "host_w", "host_e",
+                         "plain_ms")}
+        log(f"{which} ladder, batch 1 ({len(checked)} calls) on {card}: "
+            f"kernel {tot['ms']:.4f} ms (the launches alone), "
+            f"{tot['wrap_ms']:.4f} ms (the wrapper, "
+            f"{tot['wrap_ms'] / tot['ms']:.3f}x), {tot['ends_ms']:.4f} ms "
+            f"(the launches with the eager ends, "
+            f"{tot['ends_ms'] / tot['ms']:.3f}x); host to info.cpu() "
+            f"{tot['host_w']:.4f} ms (wrapper), {tot['host_e']:.4f} ms (eager "
+            f"ends); plain {tot['plain_ms']:.1f} ms, bound "
             f"{bms:.6f} ms ({by}; {nbytes} bytes); ptxas {ptxas}")
         records.append({
             "name": name, "route": "cuda",
@@ -1640,11 +1838,74 @@ def main():
             "replaces": f"desamba_tpu/engine/device/ladder.py:{line}",
             "launches": launches[name], "launches_per_call": len(checked),
             "max_abs_err": max(r["err"] for r in checked + [forced]),
-            "ms": sum(r["ms"] for r in checked),
-            "wrapper_ms": sum(r["wrap_ms"] for r in checked),
-            "plain_ms": sum(r["plain_ms"] for r in checked),
+            "ms": tot["ms"], "wrapper_ms": tot["wrap_ms"],
+            "eager_ends_ms": tot["ends_ms"], "host_ms": tot["host_w"],
+            "eager_ends_host_ms": tot["host_e"], "plain_ms": tot["plain_ms"],
             "bound_ms": bms, "bound_by": by,
             "library_ms": None, "library_eager_ms": None})
+
+    # the two ends as records: pack2 on batch 1's read codes (one launch, the
+    # same codes in every ladder call of the batch); the anchor pack summed
+    # over batch 1's ladder calls
+    codes1 = next((a[0] for k, c, a in ladder_calls if c is not None), None)
+    if codes1 is None or not pack_calls:
+        failures.append("no ladder call to hold the pack kernels on")
+    else:
+        N, L = codes1.shape
+        # copies of the codes, taken in turn, that pass twice the card's
+        # 50-MB L2 in all, so that each launch reads its codes from device
+        # memory, as its bound counts them
+        copies = [codes1] + [codes1.clone() for _ in range(
+            max(1, math.ceil(100e6 / codes1.numel()) - 1))]
+        outs2 = [torch.empty((N, (L + 15) // 16), dtype=torch.int32,
+                             device=codes1.device) for _ in copies]
+        fns2 = [lib_launch(pack_lib.ladder_pack2_launch, c, o, N, L,
+                           o.shape[1], codes1.device.index)
+                for c, o in zip(copies, outs2)]
+        for f in fns2:
+            f()
+        torch.cuda.synchronize()
+        plain2 = lambda: textwalk.pack2(codes1)               # noqa: E731
+        exp2 = plain2()
+        err2 = max(max(max_err_t(o, exp2) for o in outs2),
+                   max_err_t(ladder.pack2_cuda(codes1), exp2))
+        ms2 = micro.graph_ms(fns2, codes1.device, 50)
+        bnd2 = bound(N * L + 4 * outs2[0].numel(), 0)
+        plain2_ms = cuda_ms(plain2, 3)
+        log(f"pack2 on batch 1's codes ({N} x {L} bytes, wide rows "
+            f"{L % 16 == 0}) on {card}: the launch alone {ms2:.5f} ms in a "
+            f"graph over {len(copies)} copies taken in turn (cold in L2), "
+            f"plain {plain2_ms:.4f} ms, bound {bnd2[0]:.6f} ms "
+            f"({bnd2[1]}); ptxas {pack_ptxas['pack2_kernel']}; max_abs_err "
+            f"{err2}")
+        pms = sum(r["ms"] for r in pack_calls)
+        pbnd = bound(sum(r["nbytes"] for r in pack_calls), 0)
+        log(f"anchor pack over batch 1's {len(pack_calls)} ladder calls on "
+            f"{card}: the launches alone {pms:.5f} ms in graphs ("
+            + ", ".join(f"{r['ms']:.5f}" for r in pack_calls)
+            + f"), plain {sum(r['plain_ms'] for r in pack_calls):.4f} ms, "
+            f"bound {pbnd[0]:.6f} ms ({pbnd[1]}); ptxas "
+            f"{pack_ptxas['anchor_pack_kernel']}")
+        for nm, ms_, bnd_, err_, per, plain_ms_, line in (
+                ("pack2", ms2, bnd2, err2, 1, plain2_ms,
+                 "textwalk.py:37"),
+                ("anchor_pack", pms, pbnd,
+                 max(r["err"] for r in pack_calls), len(pack_calls),
+                 sum(r["plain_ms"] for r in pack_calls), "ladder.py:39")):
+            if err_:
+                failures.append(f"{nm} differs from its plain version: "
+                                f"max_abs_err {err_}")
+            if ms_ < bnd_[0]:
+                failures.append(f"{nm} beat its bound: {ms_} < {bnd_[0]}")
+            records.append({
+                "name": nm, "route": "cuda",
+                "source": "desamba_tpu_torch/kernels/ladder_pack.cu",
+                "replaces": f"desamba_tpu/engine/device/{line}",
+                "launches": launches[nm], "launches_per_call": per,
+                "max_abs_err": err_, "ms": ms_, "plain_ms": plain_ms_,
+                "bound_ms": bnd_[0], "bound_by": bnd_[1],
+                "library_ms": None, "library_eager_ms": None})
+        del copies, outs2, fns2
     del ladder_calls
 
     # ---- 5d. B4: the chaining kernels on the main path's calls -------------
@@ -1973,8 +2234,39 @@ def main():
                         f"{eg_err}")
     rec = next(r for r in records if r["name"] == "micro_egather")
     rec.update(alone_ms=eg_ms["change"], parent_ms=eg_ms.get("parent"))
+    # K4.1 (rowgather_kernel): its registers and the launch alone in a
+    # graph, beside the parent's kernel (--parent) in turns, each bit-equal
+    # to the plain version
+    log(f"ptxas rowgather_kernel<true>: "
+        f"{ptxas_lines(built['micro.cu'], 'rowgather_kernel', 'ILb1E')}")
+    tab, idxc, reps1 = x3["tab"], x3["idxc"], micro.FULL["REPK"]
+    exp = micro.rowgather_plain(tab, idxc, reps1)
+    rg_libs = {"change": mlib.micro_rowgather}
+    if parent:
+        fn = parent["micro.cu"][0].micro_rowgather
+        fn.argtypes, fn.restype = mlib.micro_rowgather.argtypes, ctypes.c_int
+        rg_libs["parent"] = fn
+        log(f"ptxas rowgather_kernel (parent): "
+            f"{ptxas_lines(parent['micro.cu'][1], 'rowgather_kernel')}")
+    rg_out = {k: torch.empty_like(idxc) for k in rg_libs}
+    rg_fns = {k: lib_launch(f, tab, idxc, rg_out[k], idxc.shape[0],
+                            tab.shape[0], reps1)
+              for k, f in rg_libs.items()}
+    for f in rg_fns.values():
+        f()
+    torch.cuda.synchronize()
+    rg_err = {k: max_err(o, exp) for k, o in rg_out.items()}
+    rg_ms = in_turns(rg_fns, dev0)
+    log(f"K4.1 the launch alone in a graph, in turns on {card}: "
+        + ", ".join(f"{k} {v:.5f} ms (max_abs_err {rg_err[k]})"
+                    for k, v in rg_ms.items()))
+    if max(rg_err.values()):
+        failures.append(f"K4.1: a kernel differs from its plain version: "
+                        f"{rg_err}")
+    rec = next(r for r in records if r["name"] == "micro_rowgather")
+    rec.update(alone_ms=rg_ms["change"], parent_ms=rg_ms.get("parent"))
     floor_unit = mres["K6.0"]["graph_ms"]
-    del mres, x3, tab2, idx2, exp, eg_out, eg_fns
+    del mres, x3, tab2, idx2, exp, eg_out, eg_fns, rg_out, rg_fns
     torch.cuda.empty_cache()
 
     # ---- 8. tile helpers (K2) -----------------------------------------------
@@ -2104,8 +2396,8 @@ def main():
     log("kernels slower than their library call in a graph: "
         + (", ".join(slower) or "none"))
     records += sharded_records
-    if len(records) != 31:
-        failures.append(f"{len(records)} kernel records, not 31")
+    if len(records) != 33:
+        failures.append(f"{len(records)} kernel records, not 33")
     # the least time of each record's calls: its roofline bound, or its
     # launches at K6.0's time a launch in a graph, whichever is larger
     for r in records:

@@ -20,6 +20,14 @@ gather tables are cut by row range over a mesh's ``idx`` axis
 (``parallel/sharded.py``), they launch the kernels' sharded instantiations
 (``fast_ladder_sharded_cuda``, ``slow_ladder_sharded_cuda``), and the
 eager ladders run on the sharded tables as they are.
+
+The two ends of each call that the JAX programs run inside their jit are
+kernels too (``kernels/ladder_pack.cu``): the read codes' ``pack2``
+before the launch (``pack2_cuda``) and the flat anchor pack with its info
+rows after it (``anchor_pack_cuda``), so a call on the card issues three
+launches and no host sync, and returns its pack overflow as a 0-dim tensor
+on the card; ``textwalk.pack2``, ``pack_anchors`` and ``pack_info`` are
+their plain versions, run for CPU tensors (where the overflow is a bool).
 """
 from __future__ import annotations
 
@@ -73,6 +81,81 @@ def pack_info(base, acnt, skip, ivovf):
     """(N, 4) int32 row [base, acnt, skip, iv_ovf] for the host."""
     return torch.stack([base.to(I32), acnt.to(I32), skip.to(I32),
                         ivovf.to(I32)], dim=1)
+
+
+def pack2_cuda(codes):
+    """``textwalk.pack2`` of a contiguous (N, L) uint8 CUDA tensor by the
+    pack2 kernel of ``kernels/ladder_pack.cu``: (N, ceil(L / 16)) int32.
+    Counted in ``pack2_cuda.launches``; a refused launch raises."""
+    from ...kernels.build import LAUNCH_LOCK, ladder_pack_lib
+
+    if (codes.device.type != "cuda" or codes.dtype != torch.uint8
+            or codes.dim() != 2 or not codes.is_contiguous()):
+        raise ValueError("pack2 kernel: codes must be a contiguous 2-D "
+                         "uint8 tensor on a CUDA device")
+    N, L = codes.shape
+    out = torch.empty((N, (L + 15) // 16), dtype=I32, device=codes.device)
+    lib = ladder_pack_lib()
+    with LAUNCH_LOCK:
+        rc = lib.ladder_pack2_launch(
+            codes.data_ptr(), out.data_ptr(), N, L, out.shape[1],
+            codes.device.index,
+            torch.cuda.current_stream(codes.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ladder_pack2_launch failed: CUDA error {rc}")
+        pack2_cuda.launches += 1
+    return out
+
+
+pack2_cuda.launches = 0
+
+
+def anchor_pack_cuda(anchors, a_cnt, flag, iv_ovf, pack_cap: int):
+    """``pack_anchors`` and ``pack_info`` of a ladder launch's outputs
+    (contiguous int32 CUDA tensors of one card: anchors (NB, a_cap, 12),
+    a_cnt, flag and iv_ovf (NB,), anchors and a_cnt 16-byte aligned as
+    allocations are) by
+    the anchor-pack kernel of ``kernels/ladder_pack.cu``: (packed, info,
+    pack overflow), the overflow a 0-dim bool tensor on the card, so
+    nothing waits for the card. Only rows below a lane's count are read.
+    Counted in ``anchor_pack_cuda.launches``; a refused launch raises."""
+    from ...kernels.build import LAUNCH_LOCK, ladder_pack_lib
+
+    dev = anchors.device
+    NB = a_cnt.shape[0]
+    for name, x in (("anchors", anchors), ("a_cnt", a_cnt), ("flag", flag),
+                    ("iv_ovf", iv_ovf)):
+        if (x.device != dev or dev.type != "cuda" or x.dtype != I32
+                or not x.is_contiguous()):
+            raise ValueError(f"anchor pack kernel: {name} must be a "
+                             f"contiguous int32 tensor on {dev}, a CUDA "
+                             f"device")
+    if (anchors.dim() != 3 or anchors.shape[0] != NB
+            or anchors.shape[2] != A_NF or anchors.shape[1] < 1
+            or flag.shape != (NB,) or iv_ovf.shape != (NB,)
+            or pack_cap < 0):
+        raise ValueError("anchor pack kernel: inconsistent shapes")
+    if anchors.data_ptr() % 16 or a_cnt.data_ptr() % 16:
+        raise ValueError("anchor pack kernel: anchors and a_cnt must be "
+                         "16-byte aligned")
+    packed = torch.empty((pack_cap, A_NF + 1), dtype=I32, device=dev)
+    info = torch.empty((NB, 4), dtype=I32, device=dev)
+    ovf = torch.empty((), dtype=torch.bool, device=dev)
+    lib = ladder_pack_lib()
+    with LAUNCH_LOCK:
+        rc = lib.ladder_anchor_pack_launch(
+            anchors.data_ptr(), a_cnt.data_ptr(), flag.data_ptr(),
+            iv_ovf.data_ptr(), packed.data_ptr(), info.data_ptr(),
+            ovf.data_ptr(), NB, anchors.shape[1], pack_cap, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ladder_anchor_pack_launch failed: CUDA "
+                               f"error {rc}")
+        anchor_pack_cuda.launches += 1
+    return packed, info, ovf
+
+
+anchor_pack_cuda.launches = 0
 
 
 def _unpack_lanes(lane_args):
@@ -188,6 +271,12 @@ _ARG_TABLES = (
     "rp_global_off", "rp_ref_id", "ref_pk", "pos2uni")
 
 
+# the tensors ladder_launch_args makes itself (the packed codes, the
+# outputs and scratch): right by construction, so not checked on each call
+_ARG_MADE = frozenset(("codes_pk", "anchors", "a_cnt", "flag", "iv_ovf",
+                       "trips", "iv"))
+
+
 class LadderArgs(ctypes.Structure):
     """The kernel's argument block: ~30 device pointers (``c_void_p``, never
     a default ctypes int, which would cut them to 32 bits) and the sizes."""
@@ -220,7 +309,10 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
                        m_cap: int = 0):
     """The kernels' LadderArgs over the inputs, on their device, with the
     outputs and scratch allocated: (args, tensors). ``tensors`` holds every
-    tensor the pointers name (keep it alive until the kernel has run).
+    tensor the pointers name (keep it alive until the kernel has run). The
+    packed codes come from ``pack2_cuda`` on a card (``pack2`` on the
+    CPU); the anchor rows are left as allocated, since the kernels write
+    every row below a lane's count and nothing reads the others.
     ``m_cap`` is the slow ladder's (the fast kernel does not read it).
     Gather tables cut into shards (``parallel.sharded``) give a
     ShardedLadderArgs: their shards lie on the devices of the mesh's idx
@@ -237,9 +329,10 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
         uni_ref_list=ixr.uni_ref_list, rp_global_off=ixr.rp_global_off,
         rp_ref_id=ixr.rp_ref_id, ref_off=ixr.ref_off, ref_pk=ixr.ref_pk,
         pos2uni=ixr.pos2uni, q_mem=q_mem, q_lv=q_lv, codes=codes_fr,
-        codes_pk=pack2(codes_fr).contiguous(), buf_len=buf_len,
-        pre13=pre13_fr, lane_args=lane_args,
-        anchors=torch.zeros((NB, a_cap, A_NF), dtype=I32, device=dev),
+        codes_pk=(pack2_cuda(codes_fr) if codes_fr.device.type == "cuda"
+                  else pack2(codes_fr).contiguous()),
+        buf_len=buf_len, pre13=pre13_fr, lane_args=lane_args,
+        anchors=torch.empty((NB, a_cap, A_NF), dtype=I32, device=dev),
         a_cnt=torch.empty((NB,), dtype=I32, device=dev),
         flag=torch.empty((NB,), dtype=I32, device=dev),
         iv_ovf=torch.empty((NB,), dtype=I32, device=dev),
@@ -247,6 +340,8 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
         iv=torch.empty((NB, cap, 2), dtype=I32, device=dev))
     sharded = _sharded_tables(t)
     for name, x in t.items():
+        if name in _ARG_MADE:
+            continue
         want = torch.uint8 if name == "codes" else I32
         for y in (x.shards if sharded and name in _ARG_TABLES else [x]):
             on = y.device.type == dev.type if y is not x else y.device == dev
@@ -285,8 +380,12 @@ def ladder_launch_args(ixr, fm_blocks, rank6, hash13, codes_fr, buf_len,
 
 
 def ladder_outputs(t, pack_cap: int):
-    """(packed, info, pack_overflow) from a launch's output tensors, as the
-    plain version returns them."""
+    """(packed, info, pack_overflow) from a launch's output tensors: the
+    anchor-pack kernel on a card (the overflow a 0-dim tensor there), the
+    plain ``pack_anchors`` and ``pack_info`` on the CPU (a bool)."""
+    if t["anchors"].device.type == "cuda":
+        return anchor_pack_cuda(t["anchors"], t["a_cnt"], t["flag"],
+                                t["iv_ovf"], pack_cap)
     packed, a_base, p_ovf = pack_anchors(t["anchors"], t["a_cnt"], pack_cap)
     return packed, pack_info(a_base, t["a_cnt"], t["flag"],
                              t["iv_ovf"]), p_ovf
@@ -297,7 +396,10 @@ def _launch(entry, args, kw, pack_cap, wrapper):
     of one card (``ladder_launch_args`` refuses any on another; a sharded
     entry reads the shards on their cards, by peer access) and count it in
     ``wrapper.launches``; returns (what the plain version returns, the
-    lanes' trips). A refused launch raises."""
+    lanes' trips). The read codes are packed before and the anchor rows
+    after by the kernels of ``ladder_pack.cu``, on the same stream: nothing
+    from the call to the return waits for the card, and the pack overflow
+    is a 0-dim tensor on it. A refused launch raises."""
     from ...kernels.build import LAUNCH_LOCK, enable_peers, ladder_lib
 
     lane_args = args[9]
@@ -330,8 +432,9 @@ def _launch(entry, args, kw, pack_cap, wrapper):
 def fast_ladder_cuda(*args, l_ek: int, a_cap: int, pack_cap: int,
                      iv_cap: int | None = None):
     """Launch the fast-ladder kernel on CUDA tensors (``fast_ladder``'s
-    arguments); returns what ``fast_ladder`` returns. The lanes' trips stay
-    in ``fast_ladder_cuda.trips`` (NB,). A refused launch raises."""
+    arguments); returns what ``fast_ladder`` returns, the pack overflow as
+    a 0-dim bool tensor on the card. The lanes' trips stay in
+    ``fast_ladder_cuda.trips`` (NB,). A refused launch raises."""
     out, fast_ladder_cuda.trips = _launch(
         "ladder_fast_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
                                          iv_cap=iv_cap), pack_cap,
@@ -454,8 +557,9 @@ slow_ladder.trips = 0
 def slow_ladder_cuda(*args, l_ek: int, a_cap: int, m_cap: int,
                      pack_cap: int, iv_cap: int | None = None):
     """Launch the slow-ladder kernel on CUDA tensors (``slow_ladder``'s
-    arguments); returns what ``slow_ladder`` returns. The lanes' trips stay
-    in ``slow_ladder_cuda.trips`` (NB,). A refused launch raises."""
+    arguments); returns what ``slow_ladder`` returns, the pack overflow as
+    a 0-dim bool tensor on the card. The lanes' trips stay in
+    ``slow_ladder_cuda.trips`` (NB,). A refused launch raises."""
     out, slow_ladder_cuda.trips = _launch(
         "ladder_slow_launch", args, dict(l_ek=l_ek, a_cap=a_cap,
                                          iv_cap=iv_cap, m_cap=m_cap),

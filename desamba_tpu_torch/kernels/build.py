@@ -15,10 +15,10 @@ between).
 
 Each library links the CUDA runtime statically (nvcc's default), so it
 keeps its own current device a thread, 0 at first, whatever PyTorch's is.
-The path's launchers (``rescore.cu``, ``ladder.cu``, ``chain.cu``) take
-the ordinal of their tensors' card and make it current before they set an
-attribute or launch; their wrappers pass it and refuse tensors on two
-cards.
+The path's launchers (``rescore.cu``, ``ladder.cu``, ``ladder_pack.cu``,
+``chain.cu``) take the ordinal of their tensors' card and make it current
+before they set an attribute or launch; their wrappers pass it and refuse
+tensors on two cards.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("rescore.cu", "cmpcount.cu", "plops.cu", "micro.cu", "caps.cu",
-           "ladder.cu", "chain.cu")
+           "ladder.cu", "ladder_pack.cu", "chain.cu")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -207,6 +207,15 @@ def ladder_lib():
                                 "ladder_sharded_args_size": "",
                                 "ladder_smem_bytes": "i",
                                 "ladder_enable_peer": "ii"})
+
+
+def ladder_pack_lib():
+    # pack2: codes, out, n, l, w, the card's ordinal, stream; the anchor
+    # pack: anchors, a_cnt, flag, iv_ovf, packed, info, ovf, nb, a_cap,
+    # pack_cap, the card's ordinal, stream
+    return _bound("ladder_pack.cu", {
+        "ladder_pack2_launch": "pp" + "iii" + "i" + "p",
+        "ladder_anchor_pack_launch": "p" * 7 + "iii" + "i" + "p"})
 
 
 def chain_lib():

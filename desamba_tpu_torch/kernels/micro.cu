@@ -99,7 +99,19 @@
 //   output loading its window straight from L2 with no staging, pays two
 //   dependent round trips (the index, then the window) and ran 1.06x and
 //   1.08x slower in two runs on the card (PERF.md).
-// - rowgather: a gather is native here, one load per thread.
+// - rowgather_kernel (K4.1): 256 outputs, each the sum of 20 rows of 512
+//   bytes gathered from a 2-MB table that stays in L2 across calls. What
+//   bounds it is the launch and its chain of dependent loads: the row's
+//   index, then its rows. A block a row of 128 threads loaded the index
+//   and then walked the rows in a loop of runtime length, a few loads in
+//   flight at a time. Here a warp takes a row, its lanes 16 bytes each of
+//   a 512-byte row, and after the one index load issues all RG4_UNROLL
+//   (20, the tool's count) row loads at once, unrolled at compile time,
+//   with a runtime loop for any further groups and a tail. One warp a
+//   block (256 blocks for the tool's 256 rows): on the card it ran 2.02
+//   us against the parent's 2.34 in one call, where two warps a block ran
+//   2.44 against the parent's 2.38 in another (PERF.md); what is left is
+//   the launch, the index's round trip and the rows' (2.6 MB from L2).
 // - gridstep_kernel: one block per TPU program, so its time over the grid
 //   is the card's cost of scheduling a block; with one block it is the
 //   empty kernel, the launch floor.
@@ -136,7 +148,7 @@
 
 #define RW 128   // row width (lanes) of every table
 
-// The four kernels below (and their helpers) also compile as host C++
+// The five kernels below (and their helpers) also compile as host C++
 // (tests/cuda_host/micro_emu.cpp runs them over block_emu.h); the rest of
 // the file needs nvcc (__CUDACC__).
 
@@ -338,6 +350,64 @@ __global__ void __launch_bounds__(OP_THREADS)
     out[w] = (int)((unsigned)x[w] + pb[0]);
 }
 
+// out[g, :] = sum_{r < reps} tab[(idx[g, 0] + r) & row_mask, :], a warp a
+// gathered row (blockDim.x / 32 rows a block), lane l summing columns
+// 4 l .. 4 l + 3: one 16-byte load a row where tab and out are 16-byte
+// aligned (WIDE), else four 4-byte ones. Sums wrap as int32 (unsigned).
+#define RG4_WARPS 1       // warps (gathered rows) a block
+#define RG4_UNROLL 20     // row loads in flight after the index: the tool's
+
+template <bool WIDE>
+__device__ __forceinline__ int4 rg4_load(const int* p) {
+  if (WIDE) return __ldg((const int4*)p);
+  return make_int4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+template <bool WIDE>
+__global__ void __launch_bounds__(RG4_WARPS * 32)
+    rowgather_kernel(const int* __restrict__ tab, const int* __restrict__ idx,
+                     int* __restrict__ out, int g, int row_mask, int reps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= g) return;
+  const unsigned base = (unsigned)__ldg(idx + (size_t)row * RW);
+  const unsigned mask = (unsigned)row_mask;
+  const int* col = tab + 4 * lane;
+  unsigned s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+  int r = 0;
+  for (; r + RG4_UNROLL <= reps; r += RG4_UNROLL) {
+    int4 v[RG4_UNROLL];
+#pragma unroll
+    for (int u = 0; u < RG4_UNROLL; ++u)
+      v[u] = rg4_load<WIDE>(col +
+                            (size_t)((base + (unsigned)(r + u)) & mask) * RW);
+#pragma unroll
+    for (int u = 0; u < RG4_UNROLL; ++u) {
+      s0 += (unsigned)v[u].x;
+      s1 += (unsigned)v[u].y;
+      s2 += (unsigned)v[u].z;
+      s3 += (unsigned)v[u].w;
+    }
+  }
+  for (; r < reps; ++r) {
+    const int4 v =
+        rg4_load<WIDE>(col + (size_t)((base + (unsigned)r) & mask) * RW);
+    s0 += (unsigned)v.x;
+    s1 += (unsigned)v.y;
+    s2 += (unsigned)v.z;
+    s3 += (unsigned)v.w;
+  }
+  int* o = out + (size_t)row * RW + 4 * lane;
+  if (WIDE) {
+    *(int4*)o = make_int4((int)s0, (int)s1, (int)s2, (int)s3);
+  } else {
+    o[0] = (int)s0;
+    o[1] = (int)s1;
+    o[2] = (int)s2;
+    o[3] = (int)s3;
+  }
+}
+
 // out[b, n] = sum_{r < reps} tab[b, (idx[b, n] + r) & (ek - 1)]. Grid
 // (eb, en / EG_THREADS): block (b, k) takes outputs k * EG_THREADS ... of
 // row b, a thread an output. Each thread loads its index first; meanwhile
@@ -382,21 +452,6 @@ __global__ void __launch_bounds__(EG_THREADS)
 #ifdef __CUDACC__
 
 #define OP_SMEM ((2 * OP_THREADS + 1) * sizeof(unsigned))
-
-// out[g, :] = sum_{r < reps} tab[(idx[g, 0] + r) & row_mask, :]
-// grid: one block per gathered row, 128 threads.
-__global__ void rowgather_kernel(const int* __restrict__ tab,
-                                 const int* __restrict__ idx,
-                                 int* __restrict__ out, int row_mask,
-                                 int reps) {
-  const int g = blockIdx.x, l = threadIdx.x;
-  const unsigned base = (unsigned)idx[(size_t)g * RW];
-  unsigned acc = 0;
-  for (int r = 0; r < reps; ++r)
-    acc += (unsigned)tab[(size_t)((base + (unsigned)r) & (unsigned)row_mask) *
-                             RW + l];
-  out[(size_t)g * RW + l] = (int)acc;
-}
 
 // out[r, :] += sum_{i in this block's trips} tab[off_i + r, :] for r < ROWS,
 // off_i = ((s + i * mul) * scale) & mask; block b takes the trips
@@ -580,8 +635,11 @@ __global__ void vecwork_kernel(const int* __restrict__ v, int* out,
 extern "C" int micro_rowgather(const int* tab, const int* idx, int* out,
                                int g, int rows, int reps, void* stream) {
   if (g <= 0 || !pow2(rows) || reps < 0) return (int)cudaErrorInvalidValue;
-  rowgather_kernel<<<g, RW, 0, (cudaStream_t)stream>>>(tab, idx, out,
-                                                       rows - 1, reps);
+  const int blocks = (g + RG4_WARPS - 1) / RG4_WARPS;
+  const bool wide = ((size_t)tab & 15) == 0 && ((size_t)out & 15) == 0;
+  (wide ? rowgather_kernel<true> : rowgather_kernel<false>)
+      <<<blocks, RG4_WARPS * 32, 0, (cudaStream_t)stream>>>(
+          tab, idx, out, g, rows - 1, reps);
   return (int)cudaGetLastError();
 }
 

@@ -149,7 +149,9 @@ class MeshClassifier(DeviceClassifier):
                 buf_len.to(dev), pre13.to(dev), t.q_mem, t.q_lv,
                 lane_args[:, sl].to(dev).contiguous(), **kw)
             parts.append((packed, info))
-            ovf |= p_ovf
+            # a bool on the CPU, a 0-dim tensor on the row's card
+            ovf |= (p_ovf.to(self.device) if torch.is_tensor(p_ovf)
+                    else p_ovf)
         packed, info = self._gather(parts)
         return packed, info, ovf
 

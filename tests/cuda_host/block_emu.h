@@ -257,11 +257,17 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
 
-// Blocks run one after another on one host thread, so an atomic is a plain
+// Blocks run one after another on one host thread, and a block's threads
+// run one at a time between collectives, so an atomic is a plain
 // read-modify-write and a fence has nothing to order.
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   const unsigned old = *p;
   *p = old + v;
+  return old;
+}
+inline int atomicMax(int* p, int v) {
+  const int old = *p;
+  if (v > old) *p = v;
   return old;
 }
 inline void __threadfence() {}

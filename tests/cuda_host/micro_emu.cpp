@@ -1,8 +1,9 @@
-// The four kernels of kernels/micro.cu that compile as host C++
-// (lgather_kernel, K6.2, rgather_kernel, K6.3, oneprog_kernel, K5.c, and
-// egather_kernel, K4.2) over block_emu.h: micro_emu_lgather,
-// micro_emu_rgather, micro_emu_oneprog and micro_emu_egather run each
-// kernel's grid on the CPU, block by block, with
+// The five kernels of kernels/micro.cu that compile as host C++
+// (lgather_kernel, K6.2, rgather_kernel, K6.3, oneprog_kernel, K5.c,
+// egather_kernel, K4.2, and rowgather_kernel, K4.1) over block_emu.h:
+// micro_emu_lgather, micro_emu_rgather, micro_emu_oneprog,
+// micro_emu_egather and micro_emu_rowgather run each kernel's grid on the
+// CPU, block by block, with
 // the arguments of its launcher (no stream), the block size and an order:
 // `reverse` runs the blocks from the last to the first (so another block
 // finishes last) and each block's threads n-1..0 between barriers and warp
@@ -132,3 +133,30 @@ extern "C" int micro_emu_egather(const int* tab, const int* idx, int* out,
   }
   return 0;
 }
+
+// tab (rows, 128), idx (g, 128), out (g, 128): what micro_rowgather takes,
+// at `warps` gathered rows a block (the launcher's RG4_WARPS, or another
+// count up to 32), in 16-byte loads where `wide` (the launcher's choice where tab and
+// out are 16-byte aligned) and in 4-byte ones otherwise
+extern "C" int micro_emu_rowgather(const int* tab, const int* idx, int* out,
+                                   int g, int rows, int reps, int warps,
+                                   int wide, int reverse) {
+  if (g <= 0 || !pow2(rows) || reps < 0 || warps <= 0 || warps > 32 ||
+      (wide && (((size_t)tab & 15) || ((size_t)out & 15)))) {
+    last_error = "argument out of range";
+    return 1;
+  }
+  const int blocks = (g + warps - 1) / warps;
+  for (int k = 0; k < blocks; ++k)
+    if (run(k, blocks, 32 * warps, reverse, [&] {
+          if (wide)
+            rowgather_kernel<true>(tab, idx, out, g, rows - 1, reps);
+          else
+            rowgather_kernel<false>(tab, idx, out, g, rows - 1, reps);
+        }))
+      return 1;
+  return 0;
+}
+
+// the launcher's rows a block
+extern "C" int micro_emu_rowgather_warps() { return RG4_WARPS; }

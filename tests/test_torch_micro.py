@@ -13,9 +13,10 @@ the port's ``make_inputs`` from a seed, so the tables the tools left at zero
 carry values, the start scalar is not 0 and can be negative, and the
 elementwise input has negative words (which pins the shift by 32 and more).
 
-The four kernels of ``kernels/micro.cu`` that compile as host C++ (K6.2's
-``lgather_kernel``, K6.3's ``rgather_kernel``, K5.c's ``oneprog_kernel``
-and K4.2's ``egather_kernel``) also run here from their own source, through
+The five kernels of ``kernels/micro.cu`` that compile as host C++ (K6.2's
+``lgather_kernel``, K6.3's ``rgather_kernel``, K5.c's ``oneprog_kernel``,
+K4.2's ``egather_kernel`` and K4.1's ``rowgather_kernel``) also run here
+from their own source, through
 ``tests/cuda_host/micro_emu.cpp`` over ``block_emu.h`` (a block's threads as
 coroutines, in both orders between barriers and warp sums), against the
 plain versions; and the splits of their work (trips over blocks, lanes and
@@ -623,9 +624,9 @@ EMU_N = [0, 1, 31, 32, 33, 3001]
 
 @pytest.fixture(scope="module")
 def micro_emu(tmp_path_factory):
-    """lgather_kernel, rgather_kernel, oneprog_kernel and egather_kernel of
-    kernels/micro.cu compiled as host C++ over tests/cuda_host/block_emu.h, loaded with
-    ctypes."""
+    """lgather_kernel, rgather_kernel, oneprog_kernel, egather_kernel and
+    rowgather_kernel of kernels/micro.cu compiled as host C++ over
+    tests/cuda_host/block_emu.h, loaded with ctypes."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to emulate the kernels with")
@@ -641,6 +642,10 @@ def micro_emu(tmp_path_factory):
     lib.micro_emu_oneprog.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     lib.micro_emu_egather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
     lib.micro_emu_egather.restype = ctypes.c_int
+    lib.micro_emu_rowgather.argtypes = ([ctypes.c_void_p] * 3
+                                        + [ctypes.c_int] * 6)
+    lib.micro_emu_rowgather.restype = ctypes.c_int
+    lib.micro_emu_rowgather_warps.restype = ctypes.c_int
     lib.micro_emu_lgather.restype = lib.micro_emu_oneprog.restype = ctypes.c_int
     lib.micro_emu_rgather.restype = ctypes.c_int
     lib.micro_emu_rgather_fits.restype = ctypes.c_int
@@ -1123,3 +1128,82 @@ def test_egather_launcher_refusals(micro_emu):
     assert np.array_equal(out, micro.egather_plain(
         torch.from_numpy(np.ascontiguousarray(half)), torch.from_numpy(idx),
         3).numpy())
+
+
+# ---- the CUDA source of K4.1, run on the CPU -----------------------------------
+
+def rowgather_reps_kernel(reps, gn):
+    """tools/pallas_micro.py:57-63 (``rowgather_kernel``) with ``reps`` in
+    place of REPK (20) and ``gn`` gathered rows in place of GN."""
+    def kernel(tab_ref, idx_ref, o_ref):
+        tab = tab_ref[:]
+        acc = jnp.zeros((gn, RW), jnp.int32)
+        for r in range(reps):
+            ii = (idx_ref[:] + r) & (KR - 1)
+            acc = acc + jnp.take(tab, ii[:, 0], axis=0)
+        o_ref[:] = acc
+    return kernel
+
+
+@pytest.mark.parametrize("reps", [0, 1, 20, 21])
+def test_rowgather_kernel_source_matches_pallas(micro_emu, reps):
+    """kernels/micro.cu rowgather_kernel (K4.1) itself, on the CPU: 37
+    gathered rows (not a whole number of blocks) from the tool's (4096,
+    128) table over the whole int32 range, at the launcher's rows a block
+    (one) and at two and three, by 16-byte loads (the launcher's choice for
+    16-byte aligned tables and outputs) and by 4-byte ones (a table and an
+    output 4 bytes off), blocks and threads both ways, equals the Pallas
+    body in interpret mode and ``rowgather_plain`` bit for bit; reps 0, 1,
+    the tool's 20 (one unrolled group) and 21 (a group and the tail); the
+    start rows include rows - 1, -1 and both int32 extremes, so gathers
+    wrap at the table's end, and the sums wrap int32."""
+    g = 37
+    rng = np.random.default_rng([29, reps])
+    tab = rng.integers(I32_MIN, I32_MAX, (KR, RW), dtype=np.int64).astype(
+        np.int32)
+    idx = rng.integers(0, KR, (g, RW), dtype=np.int64)
+    idx[:6, 0] = [KR - 1, -1, I32_MIN, I32_MAX, KR - 3, -KR - 5]
+    idx = idx.astype(np.int32)
+    exp = call(rowgather_reps_kernel(reps, g), (g, RW), (V, V), tab, idx)
+    plain = micro.rowgather_plain(torch.from_numpy(tab),
+                                  torch.from_numpy(idx), reps).numpy()
+    assert np.array_equal(plain, exp)
+    for wide in (1, 0):
+        if wide:
+            t = _aligned(tab)
+        else:                   # 4 bytes past a 16-byte boundary
+            buf = _aligned(np.zeros(tab.size + 4, np.int32))
+            t = buf[1:tab.size + 1].reshape(tab.shape)
+            t[...] = tab
+        for warps in (micro_emu.micro_emu_rowgather_warps(), 2, 3):
+            for reverse in (0, 1):
+                obuf = _aligned(np.full(g * RW + 4, 0x5A5A5A5A, np.int32))
+                out = obuf[1 - wide:1 - wide + g * RW].reshape(g, RW)
+                rc = micro_emu.micro_emu_rowgather(
+                    t.ctypes.data, idx.ctypes.data, out.ctypes.data, g, KR,
+                    reps, warps, wide, reverse)
+                assert rc == 0, micro_emu.micro_emu_error().decode()
+                assert np.array_equal(out, exp), (
+                    f"wide {wide}, {warps} rows a block, reverse {reverse}: "
+                    f"{int((out != exp).sum())} of {exp.size} sums differ")
+    if reps:
+        assert len(np.unique(exp)) > 1
+    if reps > 1:
+        rows = (idx[:, :1].astype(np.int64) + np.arange(reps)) & (KR - 1)
+        exact = tab.astype(np.int64)[rows].sum(axis=1)
+        assert (np.abs(exact) >= 1 << 31).any()     # the sums wrap int32
+
+
+def test_rowgather_emulation_refuses_what_the_launcher_refuses(micro_emu):
+    """micro_rowgather's refusals (no rows, a table that is not a power of
+    two, negative reps), and 16-byte loads only from aligned pointers."""
+    tab = _aligned(np.zeros((64, RW), np.int32))
+    idx = np.zeros((4, RW), np.int32)
+    out = _aligned(np.zeros((4, RW), np.int32))
+    ptrs = (tab.ctypes.data, idx.ctypes.data, out.ctypes.data)
+    for g, rows, reps, wide, p in ((0, 64, 1, 1, 0), (4, 48, 1, 1, 0),
+                                   (4, 64, -1, 1, 0), (4, 64, 1, 1, 4)):
+        assert micro_emu.micro_emu_rowgather(
+            ptrs[0] + p, *ptrs[1:], g, rows, reps, 2, wide, 0) == 1
+        assert micro_emu.micro_emu_error() == b"argument out of range"
+    assert micro_emu.micro_emu_rowgather(*ptrs, 4, 64, 1, 2, 1, 0) == 0
